@@ -8,14 +8,23 @@ Phases, each timed on its own line:
   2. build: every CUDA source of the port, one nvcc each, all at once;
   3. kernels: ``corr_fwd`` against ``correlation_plain`` on the card at the
      five MaskFlownet_S level shapes of Sintel's 448x1024 working size,
-     batch 4, plus md=2 and an odd shape; f32 and bf16, LeakyReLU on and
-     off; then each level's kernel time (CUDA events, warm, median) beside
-     its bound and the plain version's time;
+     batch 4, and ``corr_bwd_f1``/``corr_bwd_f2`` against their plain
+     versions at the five level shapes of the FlyingChairs train step
+     (batch 8, 320x448); each plus md=2 and an odd shape, f32 and bf16,
+     LeakyReLU on and off; then each level's bf16 kernel time (CUDA
+     events, warm, median) beside its bound and the plain version's time;
   4. slice: ``Predictor.do_batch`` on 4 Sintel-sized pairs (436x1024) with
      seeded weights at the published widths: f32 with the kernel against
      f32 with the plain correlation, the card against the CPU on a small
      pair, then the main path in bf16 with the kernel launch count, and
-     its time per frame.
+     its time per frame;
+  5. train: ``Trainer.train_batch`` on a synthetic FlyingChairs-sized batch
+     (image 2 is image 1 shifted by a known flow) with the same weights:
+     an f32 step on the card against the same step on the CPU, an f32
+     step with the kernels against one with the plain correlation (batch
+     2, 320x448), then the main path -- bf16, batch 8, 320x448 -- with
+     the launch count of each kernel, ms/step, samples/s, peak memory, and
+     a loss after 30 steps below the first.
 Then one JSON line describing the kernels, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line; so does a machine without CUDA.
@@ -25,6 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -37,7 +47,12 @@ import maskflownet_torch.models.maskflownet as model_module
 from maskflownet_torch.inference import Predictor
 from maskflownet_torch.models import init_params
 from maskflownet_torch.ops import _build
-from maskflownet_torch.ops.correlation import corr_fwd, correlation_plain
+from maskflownet_torch.ops.correlation import (corr_bwd_f1, corr_bwd_f2,
+                                               corr_fwd,
+                                               correlation_bwd_f1_plain,
+                                               correlation_bwd_f2_plain,
+                                               correlation_plain)
+from maskflownet_torch.training import TrainSettings, Trainer
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.float32: 67e12,       # f32 outside the tensor cores
@@ -47,6 +62,12 @@ PEAK_FLOPS = {torch.float32: 67e12,       # f32 outside the tensor cores
 LEVELS = [(2, (4, 32, 112, 256)), (3, (4, 64, 56, 128)), (4, (4, 96, 28, 64)),
           (5, (4, 128, 14, 32)), (6, (4, 196, 7, 16))]
 EXTRA_CASES = [(2, (4, 64, 56, 128)), (4, (1, 8, 9, 13)), (2, (1, 8, 9, 13))]
+# (level, (N, C, H, W)) of the MaskFlownet_S train step: FlyingChairs crop
+# 320x448, batch 8
+TRAIN_LEVELS = [(2, (8, 32, 80, 112)), (3, (8, 64, 40, 56)),
+                (4, (8, 96, 20, 28)), (5, (8, 128, 10, 14)),
+                (6, (8, 196, 5, 7))]
+TRAIN_EXTRA = [(2, (8, 64, 40, 56)), (4, (1, 8, 9, 13)), (2, (1, 8, 9, 13))]
 # f32: kernel and plain version sum over C in different orders; bf16: the
 # kernel's output is one bf16 rounding (<= 2^-8 relative) of the f32 value
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
@@ -56,6 +77,15 @@ SLICE_BATCH, SLICE_HW = 4, (436, 1024)
 # only in the correlation's summation order (~1e-7 relative), which the
 # following convs carry to the flow far below a thousandth of a pixel
 FLOW_TOL_PX = 1e-3
+TRAIN_BATCH, TRAIN_HW, TRAIN_LR = 8, (320, 448), 1e-4
+# f32 steps, card vs CPU and kernel vs plain: the loss within rtol 1e-5 and
+# every parameter's gradient within 1e-3 of its norm (summation order
+# only; the same bounds hold the CPU step against JAX in the tests)
+LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-3
+# (name, launcher, plain version, feature the gradient is taken against):
+# corr_bwd_f1 reads f2, corr_bwd_f2 reads f1
+BWD = [("corr_bwd_f1", corr_bwd_f1, correlation_bwd_f1_plain, 1),
+       ("corr_bwd_f2", corr_bwd_f2, correlation_bwd_f2_plain, 0)]
 
 
 def require(ok: bool, what: str) -> None:
@@ -99,6 +129,19 @@ def corr_bound_ms(shape, md: int, dtype: torch.dtype):
     return bytes_ms, ops_ms
 
 
+def bwd_bound_ms(shape, md: int, dtype: torch.dtype, leaky: bool):
+    """Least time for one gradient kernel: g (and, with the LeakyReLU, the
+    saved output) and one feature map read once, the gradient written
+    once, against its multiply-adds at the dtype's peak."""
+    n, c, h, w = shape
+    dd = (2 * md + 1) ** 2
+    size = torch.tensor([], dtype=dtype).element_size()
+    maps = (2 if leaky else 1) * n * dd * h * w
+    bytes_ms = (maps + 2 * n * c * h * w) * size / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * n * c * h * w * dd / PEAK_FLOPS[dtype] * 1e3
+    return bytes_ms, ops_ms
+
+
 def check_kernel(gen):
     """corr_fwd vs the plain version on every case; returns the largest f32
     error."""
@@ -125,10 +168,80 @@ def check_kernel(gen):
     return worst[torch.float32]
 
 
-def time_levels(gen):
-    """Per-level kernel and plain times in bf16 (the main path's dtype)."""
+def _bwd_inputs(shape, md, dtype, leaky, gen):
+    """f1, f2, the cotangent g and the saved output (None without leaky)."""
+    n, c, h, w = shape
+    f1 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    f2 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    g = torch.randn((n, (2 * md + 1) ** 2, h, w), generator=gen,
+                    device="cuda").to(dtype)
+    out = None if leaky is None else correlation_plain(f1, f2, md, leaky)
+    return (f1, f2), g, out
+
+
+def check_bwd_kernels(gen):
+    """corr_bwd_f1/f2 vs their plain versions at the train step's level
+    shapes and the extra cases; returns the largest f32 error of each."""
+    worst = {(name, dt): 0.0 for name, *_ in BWD
+             for dt in (torch.float32, torch.bfloat16)}
+    for md, shape in [(4, s) for _, s in TRAIN_LEVELS] + TRAIN_EXTRA:
+        for dtype in (torch.float32, torch.bfloat16):
+            for leaky in (None, 0.1):
+                feats, g, out = _bwd_inputs(shape, md, dtype, leaky, gen)
+                if leaky is not None:
+                    require(bool((out < 0).any() and (out > 0).any()),
+                            "the saved output holds both signs")
+                for name, kernel, plain, which in BWD:
+                    got = kernel(g, feats[which], out, md, leaky)
+                    torch.cuda.synchronize()
+                    want = plain(g.float(), feats[which].float(),
+                                 None if out is None else out.float(), md,
+                                 leaky)
+                    require(got.dtype == dtype and got.shape == want.shape,
+                            f"{name} output {got.dtype} {tuple(got.shape)}")
+                    torch.testing.assert_close(got.float(), want,
+                                               **TOL[dtype])
+                    err = (got.float() - want).abs().max().item()
+                    worst[(name, dtype)] = max(worst[(name, dtype)], err)
+        print(f"corr_bwd_f1/f2 check md={md} {shape}: ok", flush=True)
+    for name, *_ in BWD:
+        print(f"{name} max |err|: f32 {worst[(name, torch.float32)]:.3e} "
+              f"(tol {TOL[torch.float32]}), bf16 "
+              f"{worst[(name, torch.bfloat16)]:.3e} "
+              f"(tol {TOL[torch.bfloat16]})", flush=True)
+    return {name: worst[(name, torch.float32)] for name, *_ in BWD}
+
+
+def time_bwd_levels(gen):
+    """Per-level times of each gradient kernel and its plain version, bf16
+    with the LeakyReLU (the train step's case)."""
+    totals = {name: dict(ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+              for name, *_ in BWD}
+    for lvl, shape in TRAIN_LEVELS:
+        feats, g, out = _bwd_inputs(shape, 4, torch.bfloat16, 0.1, gen)
+        bytes_ms, ops_ms = bwd_bound_ms(shape, 4, torch.bfloat16, True)
+        bound = max(bytes_ms, ops_ms)
+        for name, kernel, plain, which in BWD:
+            f = feats[which]
+            ms = cuda_ms(lambda: kernel(g, f, out, 4, 0.1))
+            plain_ms = cuda_ms(lambda: plain(g, f, out, 4, 0.1), reps=11,
+                               inner=3)
+            print(f"{name} level {lvl} {shape} bf16: kernel {ms:.5f} ms, "
+                  f"plain {plain_ms:.5f} ms, bound {bound:.5f} ms "
+                  f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; "
+                  f"bytes {bytes_ms:.5f}, ops {ops_ms:.5f}), kernel/bound "
+                  f"{ms / bound:.2f}", flush=True)
+            for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                           ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+                totals[name][key] += v
+    return totals
+
+
+def time_levels(gen, levels=LEVELS):
+    """Per-level forward kernel and plain times in bf16 (the main path's
+    dtype)."""
     total = dict(ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
-    for lvl, shape in LEVELS:
+    for lvl, shape in levels:
         f1 = torch.randn(shape, generator=gen, device="cuda").bfloat16()
         f2 = torch.randn(shape, generator=gen, device="cuda").bfloat16()
         ms = cuda_ms(lambda: corr_fwd(f1, f2, 4, 0.1))
@@ -223,6 +336,112 @@ def drive_slice(gen):
     return launches, per_frame
 
 
+def shifted_batch(gen, b: int, hw, shift=(3, -2)):
+    """A FlyingChairs-like batch: smooth random images in [0, 255], image 2
+    image 1 moved by the integer flow ``shift`` = (dy, dx), so that
+    ``img2(p + shift) = img1(p)``; the label is that flow everywhere, the
+    mask all valid. Made on the card from ``gen``."""
+    h, w = hw
+    m = 8                                           # margin for the shift
+    coarse = torch.rand((b, 3, (h + 2 * m) // 8, (w + 2 * m) // 8),
+                        generator=gen, device="cuda")
+    big = 255 * torch.nn.functional.interpolate(
+        coarse, size=(h + 2 * m, w + 2 * m), mode="bilinear",
+        align_corners=False)
+    img1 = big[:, :, m:m + h, m:m + w].contiguous()
+    img2 = big[:, :, m - shift[0]:m - shift[0] + h,
+               m - shift[1]:m - shift[1] + w].contiguous()
+    flow = torch.tensor(shift, dtype=torch.float32, device="cuda")
+    flow = flow[None, :, None, None].expand(b, 2, h, w).contiguous()
+    return img1, img2, flow
+
+
+def step_grads(trainer, batch):
+    """Loss and every parameter's gradient of one step (no update)."""
+    loss, _ = trainer.loss(*batch)
+    loss.backward()
+    grads = {k: p.grad.detach().cpu() for k, p in trainer.params.items()}
+    trainer.opt.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def compare_steps(what, got, want):
+    """Require (loss, grads) ``got`` within LOSS_RTOL / GRAD_RTOL of
+    ``want``; print the worst relative gradient error."""
+    (lg, gg), (lw, gw) = got, want
+    worst = max(((gg[k] - gw[k]).norm() / gw[k].norm()).item() for k in gw
+                if gw[k].norm() > 0)
+    print(f"train {what}: loss {lg:.7f} vs {lw:.7f} (rel "
+          f"{abs(lg - lw) / abs(lw):.3e}, tol {LOSS_RTOL}); worst parameter "
+          f"|dgrad|/|grad| {worst:.3e} (tol {GRAD_RTOL})", flush=True)
+    require(abs(lg - lw) <= LOSS_RTOL * abs(lw), f"{what}: loss")
+    require(worst <= GRAD_RTOL, f"{what}: gradients")
+
+
+def drive_train(gen):
+    """Returns (launches of each kernel in the main-path run, ms/step,
+    samples/s)."""
+    params = init_params(0)
+    f32 = TrainSettings(compute_dtype="float32")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # an f32 step on the card against the same step on the CPU (the path
+    # the tests hold against JAX); 64x128, the smallest x64 shape with W
+    # and H unequal
+    small = shifted_batch(gen, 1, (64, 128))
+    card = step_grads(Trainer(f32, device="cuda", params=params), small)
+    cpu = step_grads(Trainer(f32, device="cpu", params=params),
+                     [t.cpu() for t in small])
+    compare_steps("f32 card vs CPU at 64x128", card, cpu)
+
+    # the kernels against the plain correlation, f32, 320x448
+    batch = shifted_batch(gen, 2, TRAIN_HW)
+    trainer = Trainer(f32, device="cuda", params=params)
+    kern = step_grads(trainer, batch)
+    counts = [k.launches for k in (corr_fwd, corr_bwd_f1, corr_bwd_f2)]
+    with mock.patch.object(model_module, "correlation", correlation_plain):
+        plain = step_grads(trainer, batch)
+    require([k.launches for k in (corr_fwd, corr_bwd_f1, corr_bwd_f2)]
+            == counts, "the plain path launched a kernel")
+    compare_steps("f32 kernels vs plain correlation, 2x320x448", kern, plain)
+    del trainer, kern, plain
+
+    # the main path: bf16, batch 8, 320x448
+    batch = shifted_batch(gen, TRAIN_BATCH, TRAIN_HW)
+    trainer = Trainer(TrainSettings(), device="cuda", params=params)
+    losses = [trainer.train_batch(*batch, lr=TRAIN_LR, sync=True)["loss"]
+              for _ in range(3)]                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = 20
+    for k in (corr_fwd, corr_bwd_f1, corr_bwd_f2):
+        k.launches = 0
+    t0 = time.perf_counter()
+    metrics = [trainer.train_batch(*batch, lr=TRAIN_LR)
+               for _ in range(timed)]
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) * 1e3 / timed
+    launches = {k.__name__: k.launches
+                for k in (corr_fwd, corr_bwd_f1, corr_bwd_f2)}
+    print(f"train main path: {timed} steps launched {launches}", flush=True)
+    for name, n in launches.items():
+        require(n == 5 * timed, f"{name}: {n} launches in {timed} steps, "
+                f"not {5 * timed}")
+    losses += [m["loss"].item() for m in metrics]
+    losses += [trainer.train_batch(*batch, lr=TRAIN_LR, sync=True)["loss"]
+               for _ in range(30 - len(losses))]
+    require(all(map(math.isfinite, losses)), f"non-finite loss: {losses}")
+    print(f"train bf16 {TRAIN_BATCH}x{TRAIN_HW[0]}x{TRAIN_HW[1]}: "
+          f"{ms_step:.3f} ms/step, {TRAIN_BATCH * 1e3 / ms_step:.2f} "
+          f"samples/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss step "
+          f"1 {losses[0]:.4f}, step 30 {losses[-1]:.4f}", flush=True)
+    require(losses[-1] < losses[0], "the loss after 30 steps is not below "
+            "the first")
+    return launches, ms_step, TRAIN_BATCH * 1e3 / ms_step
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -251,25 +470,45 @@ def main() -> int:
     with phase("kernels"):
         max_err = check_kernel(gen)
         timing = time_levels(gen)
+        print("corr_fwd at the train step's levels:", flush=True)
+        time_levels(gen, TRAIN_LEVELS)
+        bwd_err = check_bwd_kernels(gen)
+        bwd_timing = time_bwd_levels(gen)
 
     with phase("slice"):
-        launches, per_frame = drive_slice(gen)
+        infer_launches, per_frame = drive_slice(gen)
 
-    bound_ms = max(timing["bytes_ms"], timing["ops_ms"])
-    print(json.dumps({"kernels": [{
-        "name": "corr_fwd", "route": "cuda",
-        "source": "maskflownet_torch/csrc/correlation.cu",
-        "replaces": "maskflownet_tpu/ops/pallas/correlation.py:62, "
-                    "maskflownet_tpu/ops/pallas/correlation.py:191",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": bound_ms,
-        "bound_by": ("bytes" if timing["bytes_ms"] >= timing["ops_ms"]
-                     else "operations"),
-        "library_ms": None,
-        "shapes": "sum over the 5 level shapes of one bf16 forward, batch 4 "
-                  "at 448x1024",
-        "slice_ms_per_frame": per_frame}]}))
+    with phase("train"):
+        launches, ms_step, samples_s = drive_train(gen)
+
+    def entry(name, replaces, timing, err, shapes, **extra):
+        return {
+            "name": name, "route": "cuda",
+            "source": "maskflownet_torch/csrc/correlation.cu",
+            "replaces": ", ".join(f"maskflownet_tpu/ops/pallas/"
+                                  f"correlation.py:{line}"
+                                  for line in replaces),
+            "launches": launches[name], "max_abs_err": err,
+            "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+            "bound_ms": max(timing["bytes_ms"], timing["ops_ms"]),
+            "bound_by": ("bytes" if timing["bytes_ms"] >= timing["ops_ms"]
+                         else "operations"),
+            "library_ms": None, "shapes": shapes,
+            "train_ms_per_step": ms_step,
+            "train_samples_per_s": samples_s, **extra}
+
+    train_shapes = ("sum over the 5 level shapes of one bf16 train step, "
+                    "batch 8 at 320x448; launches in 20 steps")
+    print(json.dumps({"kernels": [
+        entry("corr_fwd", (62, 191), timing, max_err,
+              "sum over the 5 level shapes of one bf16 forward, batch 4 at "
+              "448x1024; launches in 20 train steps",
+              launches_infer_forward=infer_launches,
+              slice_ms_per_frame=per_frame),
+        entry("corr_bwd_f1", (104, 232), bwd_timing["corr_bwd_f1"],
+              bwd_err["corr_bwd_f1"], train_shapes),
+        entry("corr_bwd_f2", (127, 253), bwd_timing["corr_bwd_f2"],
+              bwd_err["corr_bwd_f2"], train_shapes)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,14 +1,19 @@
-"""Where the time of MaskFlownet_S inference goes on the card.
+"""Where the time of MaskFlownet_S inference, or of its train step, goes on
+the card.
 
-    python -m maskflownet_torch.tools.profile_infer [--out PATH]
+    python -m maskflownet_torch.tools.profile_infer [--path infer|train]
+        [--out PATH]
 
-Seeded weights at the published widths drive ``Predictor.do_batch`` in
-bf16 on 4 Sintel-sized pairs (436x1024), the slice of ``chip_smoke.py``. For
-cuDNN autotuning off and on, in turns (off, on, on, off): host time per
-batch ended by ``torch.cuda.synchronize()`` (median, min, max of 20), then
-one ``torch.profiler`` window of 5 batches giving the device time by kernel
-name and category and the device's idle share of the window. Prints a
-summary and writes the full table as JSON to ``--out``.
+Seeded weights at the published widths drive, in bf16, either
+``Predictor.do_batch`` on 4 Sintel-sized pairs (436x1024; ``--path
+infer``, the default) or ``Trainer.train_batch`` on a synthetic
+FlyingChairs batch of 8 at 320x448 (``--path train``), the two slices of
+``chip_smoke.py``. For cuDNN autotuning off and on, in turns (off, on, on,
+off): host time per batch ended by ``torch.cuda.synchronize()`` (median,
+min, max of 20), then one ``torch.profiler`` window of 5 batches giving the
+device time by kernel name and category and the device's idle share of the
+window. Prints a summary and writes the full table as JSON to ``--out``
+(default ``build/profile_<path>.json``).
 """
 
 from __future__ import annotations
@@ -25,10 +30,14 @@ from torch.profiler import ProfilerActivity, profile
 
 from maskflownet_torch.inference import Predictor
 from maskflownet_torch.models import init_params
+from maskflownet_torch.training import TrainSettings, Trainer
 
-BATCH, HEIGHT, WIDTH = 4, 436, 1024
+# path -> (batch, height, width)
+SHAPES = {"infer": (4, 436, 1024), "train": (8, 320, 448)}
 # kernel-name fragments -> category, first match wins
 CATEGORIES = (("corr_fwd_kernel", "correlation (hand kernel)"),
+              ("corr_bwd_f", "correlation gradients (hand kernels)"),
+              ("multi_tensor", "optimizer (Adam)"),
               ("conv", "convolution"), ("cudnn", "convolution"),
               ("xmma", "convolution"), ("gemm", "convolution"),
               ("sm90", "convolution"), ("dgrad", "convolution"),
@@ -50,30 +59,33 @@ def _fmt(v) -> str:
     return "not measured (no device events)" if v is None else f"{v:.3f}"
 
 
-def _host_ms(pred, img1, img2, reps):
+def _host_ms(step, reps):
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        pred.do_batch(img1, img2)
+        step()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return times
 
 
-def _profile(pred, img1, img2, steps):
+def _profile(step, steps):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            pred.do_batch(img1, img2)
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = []
     intervals = []
     for evt in prof.events():
+        # user annotations (e.g. "Optimizer.step#Adam.step") are mirrored
+        # onto the device timeline; they are spans, not kernels
         if evt.device_type == torch.autograd.DeviceType.CUDA and \
-                evt.time_range.elapsed_us() > 0:
+                evt.time_range.elapsed_us() > 0 and \
+                not getattr(evt, "is_user_annotation", False):
             kernels.append((evt.name, evt.time_range.elapsed_us()))
             intervals.append((evt.time_range.start, evt.time_range.end))
     by_name: dict[str, float] = {}
@@ -107,32 +119,46 @@ def _profile(pred, img1, img2, steps):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default="build/profile_infer.json")
+    ap.add_argument("--path", choices=sorted(SHAPES), default="infer")
+    ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    batch, height, width = SHAPES[args.path]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    shape = (BATCH, 3, HEIGHT, WIDTH)
+    shape = (batch, 3, height, width)
     img1 = torch.rand(shape, generator=gen, device="cuda")
     img2 = torch.rand(shape, generator=gen, device="cuda")
-    pred = Predictor(init_params(0), device="cuda", dtype=torch.bfloat16)
+    if args.path == "infer":
+        pred = Predictor(init_params(0), device="cuda", dtype=torch.bfloat16)
 
-    report = dict(card=smi, batch=BATCH, hw=[HEIGHT, WIDTH], dtype="bf16",
-                  runs=[])
+        def step():
+            pred.do_batch(img1, img2)
+    else:
+        trainer = Trainer(TrainSettings(), device="cuda",
+                          params=init_params(0))
+        flow = torch.randn((batch, 2, height, width), generator=gen,
+                           device="cuda")
+
+        def step():
+            trainer.train_batch(255 * img1, 255 * img2, flow)
+
+    report = dict(card=smi, path=args.path, batch=batch, hw=[height, width],
+                  dtype="bf16", runs=[])
     for bench in (False, True, True, False):
         torch.backends.cudnn.benchmark = bench
-        _host_ms(pred, img1, img2, 3)                        # warm-up
-        times = _host_ms(pred, img1, img2, 20)
-        prof = _profile(pred, img1, img2, 5)
+        _host_ms(step, 3)                                    # warm-up
+        times = _host_ms(step, 20)
+        prof = _profile(step, 5)
         run = dict(cudnn_benchmark=bench, host_ms_median=statistics.median(
             times), host_ms_min=min(times), host_ms_max=max(times), **prof)
         report["runs"].append(run)
         print(f"cudnn.benchmark={bench}: {run['host_ms_median']:.3f} ms/batch "
               f"(min {run['host_ms_min']:.3f}, max {run['host_ms_max']:.3f}), "
-              f"{run['host_ms_median'] / BATCH:.3f} ms/frame; profiled "
+              f"{run['host_ms_median'] / batch:.3f} ms/frame; profiled "
               f"device busy {prof['device_busy_us'] / 5 / 1e3:.3f} ms/batch, "
               f"idle share {_fmt(prof['idle_share'])}, "
               f"{prof['kernels_per_step']:.0f} kernels/batch", flush=True)
@@ -140,7 +166,7 @@ def main(argv=None) -> int:
             print(f"    {cat:28s} {us / 1e3:8.3f} ms/batch")
         for name, us in prof["top_kernels_us_per_step"][:12]:
             print(f"    {us / 1e3:8.3f} ms  {name[:110]}")
-    out = Path(args.out)
+    out = Path(args.out or f"build/profile_{args.path}.json")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
     print(f"wrote {out}")

@@ -1,0 +1,244 @@
+"""The train/eval engine of the port: ``TrainSettings`` and ``Trainer``, the
+counterpart of ``maskflownet_tpu/training/engine.py:43-58, 104-198,
+268-392``.
+
+One step of ``Trainer.train_batch``: images / 255 in the compute dtype, mask
+/ 255 broadcast to full resolution, ``centralize``, the MaskFlownet_S
+forward, the mean multiscale EPE and the ``epe`` metric of the 4x
+upsampled finest flow, backward (the cost volume's gradient runs the
+hand-written kernels on the card), then Adam (b1 0.9, b2 0.999, eps 1e-8,
+bias-corrected as ``optax.scale_by_adam``) applied as ``-lr * update``
+with the lr given per call. The parameters are held in f32 (the master
+weights) and cast to the compute dtype inside the forward, so their
+gradients come back in f32.
+
+This slice trains MaskFlownet_S without augmentation and without a frozen
+head; settings that ask for either raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from maskflownet_torch import get_device, interop, nn
+from maskflownet_torch.inference import Predictor, centralize
+from maskflownet_torch.losses import (epe_loss_with_mask, kitti_outlier_rate,
+                                      multiscale_epe)
+from maskflownet_torch.models.maskflownet import (ModelConfig, init_params,
+                                                  maskflownet_s, param_shapes)
+from maskflownet_torch.ops.resample import upsample
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainSettings:
+    """The JAX package's ``TrainSettings``, field for field."""
+
+    model: str = "MaskFlownet_S"
+    model_cfg: ModelConfig = ModelConfig()
+    q: float | None = None                   # robust-loss exponent
+    loss_weights: tuple = (0.005, 0.01, 0.02, 0.08, 0.32)
+    loss_match: str = "upsampling"
+    fix_head: bool = False                   # freeze the MaskFlownet_S head
+    compute_dtype: str = "bfloat16"          # forward compute precision
+    target_shape: tuple[int, int] = (320, 448)
+    orig_shape: tuple[int, int] = (384, 512)
+    geo: object | None = None                # geometric augmentation config
+    color: object | None = None              # colour augmentation config
+    adam_eps: float = 1e-8
+
+    def dtype(self) -> torch.dtype:
+        return (torch.bfloat16 if self.compute_dtype == "bfloat16"
+                else torch.float32)
+
+
+def _refuse_unported(s: TrainSettings) -> None:
+    unported = [
+        (s.model != "MaskFlownet_S",
+         f"model {s.model!r}: the cascade is ROADMAP queue 1 item 10"),
+        (s.fix_head, "fix_head: ROADMAP queue 1 item 10 (the cascade)"),
+        (s.color is not None,
+         "colour augmentation: ROADMAP queue 1 item 11 (augment/color)"),
+        (s.geo is not None,
+         "geometric augmentation: ROADMAP queue 1 item 12 "
+         "(augment/geometry)"),
+    ]
+    for asked, what in unported:
+        if asked:
+            raise NotImplementedError(
+                f"maskflownet_torch.training: not ported yet: {what}")
+
+
+class Trainer:
+    """Owns the parameters (f32, on ``device``), Adam's state and the
+    step; evaluates through :class:`maskflownet_torch.inference.Predictor`.
+
+    ``params``: port parameters (OIHW), e.g. from
+    ``interop.params_from_jax``; without them the weights are drawn from
+    ``seed`` by ``models.init_params``."""
+
+    def __init__(self, settings: TrainSettings = TrainSettings(),
+                 device: str | torch.device = "cuda", seed: int = 0,
+                 params: dict[str, torch.Tensor] | None = None):
+        _refuse_unported(settings)
+        self.settings = settings
+        self.device = get_device(device)
+        self.shapes = param_shapes(settings.model_cfg)
+        if params is None:
+            params = init_params(seed, settings.model_cfg)
+        missing = sorted(set(self.shapes) - set(params))
+        unknown = sorted(set(params) - set(self.shapes))
+        if missing or unknown:
+            raise ValueError(f"params do not match MaskFlownet_S: missing "
+                             f"{missing[:5]}, unknown {unknown[:5]}")
+        self.params = {k: params[k].detach().to(self.device, torch.float32)
+                       .clone().requires_grad_() for k in sorted(params)}
+        self.opt = torch.optim.Adam(list(self.params.values()), lr=1e-4,
+                                    betas=(0.9, 0.999), eps=settings.adam_eps)
+        self.steps = 0
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+
+    def loss(self, img1, img2, flow, mask=None):
+        """The step's loss and metric, before backward: ``(loss, epe)``,
+        0-d f32 tensors, ``loss`` attached to the parameters.
+
+        img1/img2: (B,3,H,W) in [0, 255]; flow: (B,2,H,W) (dy, dx) pixels;
+        mask: None, (B,H,W) or (B,1,h,w) broadcastable to (B,1,H,W), in
+        [0, 255]. Tensors or arrays; H and W multiples of 64."""
+        s = self.settings
+        dev, dtype = self.device, s.dtype()
+        img1 = torch.as_tensor(img1, device=dev).float().div(255.0).to(dtype)
+        img2 = torch.as_tensor(img2, device=dev).float().div(255.0).to(dtype)
+        flow = torch.as_tensor(flow, device=dev).float()
+        b, _, h, w = flow.shape
+        if mask is None:
+            mask = torch.ones((b, 1, 1, 1), device=dev)
+        else:
+            mask = torch.as_tensor(mask, device=dev).float() / 255.0
+            if mask.dim() == 3:
+                mask = mask[:, None]
+        mask = mask.expand(b, 1, h, w)
+        img1, img2 = centralize(img1, img2)
+        preds, _, _ = maskflownet_s(nn.apply_ctx(self.params, dtype), img1,
+                                    img2, s.model_cfg, cascade_sources=False)
+        loss = multiscale_epe(flow, mask, preds, weights=s.loss_weights,
+                              match=s.loss_match, q=s.q).mean()
+        with torch.no_grad():
+            epe = epe_loss_with_mask(upsample(preds[-1], 4), flow,
+                                     mask).mean()
+        return loss, epe
+
+    def apply_gradients(self, lr: float) -> None:
+        """One Adam step with the gradients held in ``.grad``, then clear
+        them."""
+        for group in self.opt.param_groups:
+            group["lr"] = float(lr)
+        self.opt.step()
+        self.opt.zero_grad(set_to_none=True)
+
+    def train_batch(self, img1, img2, flow, mask=None, lr: float = 1e-4,
+                    sync: bool = False):
+        """One optimisation step (arguments as :meth:`loss`). Returns
+        ``{"loss", "epe"}``, the values before the update: 0-d tensors on
+        the device that do not wait for it, or floats with ``sync=True``."""
+        loss, epe = self.loss(img1, img2, flow, mask)
+        loss.backward()
+        self.apply_gradients(lr)
+        self.steps += 1
+        metrics = {"loss": loss.detach(), "epe": epe}
+        return {k: float(v) for k, v in metrics.items()} if sync else metrics
+
+    # ------------------------------------------------------------------
+    # evaluation
+    # ------------------------------------------------------------------
+
+    def validate(self, img1s, img2s, flows, masks=None, batch_size: int = 4,
+                 resize=None, return_type: str = "epe"):
+        """Dataset mean EPE (``"epe"``), KITTI Fl-all (``"kitti"``) or both
+        from one sweep (``"both"``), as the JAX ``Trainer.validate``. Lists
+        of HWC numpy arrays: uint8 images, (H,W,2) (dy, dx) flows, masks in
+        [0, 255]. A short last batch is padded and the padding not
+        counted."""
+        if return_type not in ("epe", "kitti", "both"):
+            raise ValueError(f"return_type {return_type!r}: expected 'epe', "
+                             "'kitti' or 'both'")
+        n = len(img1s)
+        if masks is None:
+            masks = [np.full(img1s[i].shape[:2] + (1,), 255, np.uint8)
+                     for i in range(n)]
+        predictor = Predictor({k: v.detach() for k, v in self.params.items()},
+                              device=self.device, dtype=self.settings.dtype(),
+                              cfg=self.settings.model_cfg)
+        per_sample: dict[str, list] = {"epe": [], "kitti": []}
+        wanted = ("epe", "kitti") if return_type == "both" else (return_type,)
+        for j in range(0, n, batch_size):
+            i1 = np.stack(img1s[j:j + batch_size]).astype(np.float32) / 255.0
+            i2 = np.stack(img2s[j:j + batch_size]).astype(np.float32) / 255.0
+            fl = np.stack(flows[j:j + batch_size]).astype(np.float32)
+            mk = np.stack(masks[j:j + batch_size]).astype(np.float32) / 255.0
+            if mk.ndim == 3:
+                mk = mk[..., None]
+            pad = batch_size - i1.shape[0]
+            if pad:
+                i1, i2, fl, mk = [np.concatenate(
+                    [x, np.repeat(x[-1:], pad, 0)]) for x in (i1, i2, fl, mk)]
+            flow, _, _ = predictor.do_batch(i1.transpose(0, 3, 1, 2),
+                                            i2.transpose(0, 3, 1, 2),
+                                            resize=resize)
+            fl_t, mk_t = (torch.from_numpy(x.transpose(0, 3, 1, 2)).to(
+                self.device) for x in (fl, mk))
+            for kind in wanted:
+                metric = (epe_loss_with_mask if kind == "epe"
+                          else kitti_outlier_rate)
+                e = metric(flow, fl_t, mk_t).cpu().numpy()
+                per_sample[kind].extend(e[:batch_size - pad])
+        means = {k: float(np.mean(v)) for k, v in per_sample.items() if v}
+        if return_type == "both":
+            return means["epe"], means["kitti"]
+        return means[return_type]
+
+    # ------------------------------------------------------------------
+    # checkpoints: the v1 .npz schema, shared with the JAX package
+    # ------------------------------------------------------------------
+
+    def state_dict(self) -> dict[str, np.ndarray]:
+        """``p:``/``mu:``/``nu:`` (HWIO), ``step``, ``count``, ``schema``."""
+        mu, nu, count = {}, {}, 0
+        for k, p in self.params.items():
+            st = self.opt.state.get(p)
+            if not st:
+                mu[k] = nu[k] = torch.zeros_like(p)
+                continue
+            mu[k], nu[k] = st["exp_avg"], st["exp_avg_sq"]
+            count = int(st["step"])
+        return interop.npz_entries(self.params, mu, nu, count, self.steps)
+
+    def save(self, prefix: str) -> None:
+        np.savez(prefix + ".npz", **self.state_dict())
+
+    def load(self, path: str, load_states: bool = True) -> None:
+        """Load a v1 checkpoint written by either package. Missing,
+        unknown and mis-shaped entries raise. With ``load_states`` and
+        moments in the file, Adam's moments and its per-parameter step
+        come from ``mu:``/``nu:``/``count``, and the schedule's step from
+        ``step``; the two counts stay separate."""
+        ck = interop.read_npz(path, self.shapes)
+        with torch.no_grad():
+            for k, p in self.params.items():
+                p.copy_(ck["params"][k])
+        if load_states and ck["mu"] is not None:
+            if ck["count"] is None or ck["step"] is None:
+                raise ValueError(f"checkpoint has moments but no "
+                                 f"count/step: {path}")
+            for k, p in self.params.items():
+                self.opt.state[p] = {
+                    "step": torch.tensor(float(ck["count"])),
+                    "exp_avg": ck["mu"][k].to(self.device),
+                    "exp_avg_sq": ck["nu"][k].to(self.device)}
+            self.steps = ck["step"]

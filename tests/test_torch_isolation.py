@@ -37,7 +37,8 @@ def test_no_banned_import_in_source(path):
 
 def test_importing_the_port_loads_no_banned_module():
     code = ("import sys, maskflownet_torch, maskflownet_torch.inference, "
-            "maskflownet_torch.interop\n"
+            "maskflownet_torch.interop, maskflownet_torch.losses, "
+            "maskflownet_torch.training\n"
             f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -49,9 +50,24 @@ def test_importing_the_port_loads_no_banned_module():
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     from maskflownet_torch import get_device
     from maskflownet_torch.inference import Predictor
+    from maskflownet_torch.training import Trainer
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         get_device()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Predictor({})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer()
     assert get_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("change,item", [
+    (dict(model="MaskFlownet"), "item 10"), (dict(fix_head=True), "item 10"),
+    (dict(color=object()), "item 11"), (dict(geo=object()), "item 12")])
+def test_trainer_refuses_what_is_not_ported(change, item):
+    """Augmentation, the cascade and its frozen head are later slices: asking
+    for them raises and names the ROADMAP item, rather than training
+    without them."""
+    from maskflownet_torch.training import TrainSettings, Trainer
+    with pytest.raises(NotImplementedError, match=item):
+        Trainer(TrainSettings(**change), device="cpu")

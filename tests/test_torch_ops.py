@@ -1,11 +1,14 @@
 """Port ops (NCHW) against their JAX counterparts (NHWC) on the same numpy
-inputs: upsample, resize_bilinear, backwarp, the flow-guided deformable
-conv and deconv. All f32; tolerance 1e-5 (summation order only)."""
+inputs: upsample, downsample, resize_bilinear, backwarp, the flow-guided
+deformable conv and deconv, forward and (for the ops the train step
+differentiates) gradient against ``jax.vjp``. All f32; tolerance 1e-5
+(summation order only)."""
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from maskflownet_tpu import nn as jnn
@@ -134,3 +137,64 @@ def test_msra_prelu_std_matches_formula():
     fan = 9 * (32 + 64) / 2
     np.testing.assert_allclose(w.std(), np.sqrt(2 / 1.01 / fan), rtol=0.02)
     assert w.dtype == np.float32
+
+
+def _vjp_matches(jax_fn, torch_fn, inputs, seed):
+    """jax.vjp of ``jax_fn`` (NHWC arrays) and autograd of ``torch_fn`` (NCHW
+    tensors; weights as given) at the same inputs and cotangent: values and
+    every input's gradient within TOL. ``inputs``: (array, is_image)
+    pairs; an image is NHWC on the JAX side and NCHW on the port's."""
+    jx = [jnp.asarray(a) for a, _ in inputs]
+    want, vjp = jax.vjp(jax_fn, *jx)
+    g = _rand(*want.shape, seed=seed)
+    want_grads = vjp(jnp.asarray(g))
+    tx = [(_t(a) if img else torch.from_numpy(a.copy())).requires_grad_()
+          for a, img in inputs]
+    got = torch_fn(*tx)
+    np.testing.assert_allclose(_back(got), np.asarray(want), **TOL)
+    got_grads = torch.autograd.grad(got, tx, _t(g))
+    for (a, img), gg, wg in zip(inputs, got_grads, want_grads):
+        gg = _back(gg) if img else gg.numpy()
+        np.testing.assert_allclose(gg, np.asarray(wg), **TOL)
+
+
+@pytest.mark.parametrize("f", [2, 4, 8])
+def test_downsample_matches_jax(f):
+    x = _rand(2, 16, 24, 3, seed=20 + f)
+    _vjp_matches(lambda a: jresample.downsample(a, f),
+                 lambda a: tresample.downsample(a, f), [(x, True)], seed=f)
+
+
+@pytest.mark.parametrize("f", [2, 4])
+def test_upsample_grad_matches_jax(f):
+    x = _rand(2, 5, 7, 3, seed=30 + f)
+    _vjp_matches(lambda a: jresample.upsample(a, f),
+                 lambda a: tresample.upsample(a, f), [(x, True)], seed=f)
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+def test_backwarp_grad_matches_jax(clamp):
+    """Gradients of the image and of the flow; many samples leave the
+    image, so the zero border and the clamp are both crossed."""
+    img = _rand(2, 7, 9, 3, seed=31)
+    flow = _rand(2, 7, 9, 2, seed=32, scale=4.0)
+    _vjp_matches(
+        lambda a, b: jwarp.backwarp(a, b, clamp=clamp, method="gather"),
+        lambda a, b: twarp.backwarp(a, b, clamp=clamp),
+        [(img, True), (flow, True)], seed=33)
+
+
+@pytest.mark.parametrize("flow_scale", [1.5, 6.0])
+def test_warpconv_grad_matches_jax_gather(flow_scale):
+    """The main path's deform (warpconv) against the JAX gather form:
+    gradients of x, flow, weight and bias."""
+    x = _rand(2, 6, 8, 5, seed=34)
+    flow = _rand(2, 6, 8, 2, seed=35, scale=flow_scale)
+    w = _rand(3, 3, 5, 4, seed=36, scale=0.3)
+    b = _rand(4, seed=37)
+    _vjp_matches(
+        lambda xx, ff, ww, bb: jdeform.flow_guided_deform_conv3x3(
+            xx, ff, ww, bb, method="gather"),
+        lambda xx, ff, ww, bb: tdeform.flow_guided_deform_conv3x3(
+            xx, ff, ww.permute(3, 2, 0, 1), bb, method="warpconv"),
+        [(x, True), (flow, True), (w, False), (b, False)], seed=38)
