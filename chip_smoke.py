@@ -24,7 +24,19 @@ Phases, each timed on its own line:
      step with the kernels against one with the plain correlation (batch
      2, 320x448), then the main path -- bf16, batch 8, 320x448 -- with
      the launch count of each kernel, ms/step, samples/s, peak memory, and
-     a loss after 30 steps below the first.
+     a loss after 30 steps below the first;
+  6. augment: ``affine_sample`` (the sampler of geometric augmentation)
+     against ``affine_sample_plain`` at both of the FlyingChairs step's
+     launches (batch 8, 384x512 sources sampled at 320x448, coordinates
+     from ``draw_geometry`` with the chairs presets) and at an odd shape
+     whose coordinates leave the image, f32 and bf16 input; its time
+     beside its bound, the plain version's and ``F.grid_sample``'s; an
+     f32 augmented step on the card against the same step on the CPU with
+     the same draws (batch 1, 96x128 -> 64x128); then the main path --
+     ``Trainer.train_batch`` with colour and geometry on, bf16, batch 8,
+     384x512 -> 320x448 -- with the launch count of every kernel, ms/step,
+     samples/s, peak memory and a finite loss, after checking that the
+     step draws and augments without waiting for the card.
 Then one JSON line describing the kernels, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line; so does a machine without CUDA.
@@ -44,14 +56,19 @@ from unittest import mock
 import torch
 
 import maskflownet_torch.models.maskflownet as model_module
+from maskflownet_torch.augment import draw_geometry
+from maskflownet_torch.augment.geometry import sample_grids
+from maskflownet_torch.config import presets
 from maskflownet_torch.inference import Predictor
 from maskflownet_torch.models import init_params
 from maskflownet_torch.ops import _build
+from maskflownet_torch.ops.affine import affine_sample, affine_sample_plain
 from maskflownet_torch.ops.correlation import (corr_bwd_f1, corr_bwd_f2,
                                                corr_fwd,
                                                correlation_bwd_f1_plain,
                                                correlation_bwd_f2_plain,
                                                correlation_plain)
+from maskflownet_torch.ops.warp import normalized_to_pixels
 from maskflownet_torch.training import TrainSettings, Trainer
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, NVIDIA data sheet
@@ -82,6 +99,18 @@ TRAIN_BATCH, TRAIN_HW, TRAIN_LR = 8, (320, 448), 1e-4
 # every parameter's gradient within 1e-3 of its norm (summation order
 # only; the same bounds hold the CPU step against JAX in the tests)
 LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-3
+# the augmented FlyingChairs step: sources at the chairs preset's native
+# size, crops at TRAIN_HW; the card-vs-CPU check at a small size
+AUG_SRC_HW = presets.ORIG_SHAPE["chairs"]
+AUG_SMALL_SRC_HW, AUG_SMALL_HW = (96, 128), (64, 128)
+# the sampler: f32 weights and sums on both sides, in another order (FMA
+# contraction), on values of order 1 to 10 (images, flow * mask)
+AFFINE_TOL = dict(rtol=1e-5, atol=1e-5)
+# augmented inputs, card vs CPU: images and mask 1e-5; the flow, the
+# difference of two pixel coordinates of up to ~127 (f32 ulp 7.6e-6) whose
+# sin/cos-derived maps may round differently on the two devices, 1e-4 px
+# where the mask is solidly inside
+AUG_IMAGE_TOL, AUG_FLOW_TOL_PX = 1e-5, 1e-4
 # (name, launcher, plain version, feature the gradient is taken against):
 # corr_bwd_f1 reads f2, corr_bwd_f2 reads f1
 BWD = [("corr_bwd_f1", corr_bwd_f1, correlation_bwd_f1_plain, 1),
@@ -356,9 +385,9 @@ def shifted_batch(gen, b: int, hw, shift=(3, -2)):
     return img1, img2, flow
 
 
-def step_grads(trainer, batch):
+def step_grads(trainer, batch, draws=None):
     """Loss and every parameter's gradient of one step (no update)."""
-    loss, _ = trainer.loss(*batch)
+    loss, _ = trainer.loss(*batch, draws=draws)
     loss.backward()
     grads = {k: p.grad.detach().cpu() for k, p in trainer.params.items()}
     trainer.opt.zero_grad(set_to_none=True)
@@ -442,6 +471,175 @@ def drive_train(gen):
     return launches, ms_step, TRAIN_BATCH * 1e3 / ms_step
 
 
+def affine_bound_ms(img, sy):
+    """Least time for one sampling: the image and both coordinate maps read
+    once, the f32 output written once, against ~8 flops a channel and 10 a
+    pixel at the f32 peak."""
+    n, c, h, w = img.shape
+    ho, wo = sy.shape[1:]
+    pixels = n * ho * wo
+    nbytes = img.numel() * img.element_size() + 2 * pixels * 4 + pixels * c * 4
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            pixels * (8 * c + 10) / PEAK_FLOPS[torch.float32] * 1e3)
+
+
+def affine_cases(gen):
+    """(name, img, sy, sx) of both sampling launches of one augmented
+    FlyingChairs step -- packed img1 + mask + flow*mask (6 channels), then
+    img2 (3) -- at coordinates from the chairs presets' own draws, and an
+    odd shape whose coordinates leave the image on every side."""
+    cfg = presets.geometry_aug_config("chairs", TRAIN_HW, AUG_SRC_HW)
+    (g1x, g1y), (g2x, g2y) = sample_grids(
+        draw_geometry(gen, TRAIN_BATCH, cfg, "cuda"), cfg)
+    h, w = AUG_SRC_HW
+    packed = torch.rand((TRAIN_BATCH, 6, h, w), generator=gen, device="cuda")
+    packed[:, 4:] = 20 * packed[:, 4:] - 10               # flow * mask
+    img2 = torch.rand((TRAIN_BATCH, 3, h, w), generator=gen, device="cuda")
+    odd = torch.rand((1, 5, 9, 13), generator=gen, device="cuda")
+    sy = torch.rand((1, 7, 11), generator=gen, device="cuda") * 14 - 3
+    sx = torch.rand((1, 7, 11), generator=gen, device="cuda") * 19 - 3
+    return [("packed", packed, *normalized_to_pixels(g1x, g1y, h, w)),
+            ("img2", img2, *normalized_to_pixels(g2x, g2y, h, w)),
+            ("odd", odd, sy, sx)]
+
+
+def check_affine(cases):
+    """affine_sample vs affine_sample_plain on every case, f32 and bf16
+    input; returns the largest f32 error."""
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for name, img, sy, sx in cases:
+        out_of_image = ((sy < 0) | (sy > img.shape[2] - 1) | (sx < 0)
+                        | (sx > img.shape[3] - 1)).float().mean().item()
+        for dtype in (torch.float32, torch.bfloat16):
+            x = img.to(dtype)
+            got = affine_sample(x, sy, sx)
+            torch.cuda.synchronize()
+            want = affine_sample_plain(x.float(), sy, sx)
+            require(got.dtype == torch.float32 and got.shape == want.shape,
+                    f"affine_sample output {got.dtype} {tuple(got.shape)}")
+            torch.testing.assert_close(got, want, **AFFINE_TOL)
+            worst[dtype] = max(worst[dtype],
+                               (got - want).abs().max().item())
+        print(f"affine_sample check {name} {tuple(img.shape)} -> "
+              f"{tuple(sy.shape[1:])}, {out_of_image:.3f} of the points "
+              f"outside the image: ok", flush=True)
+    print(f"affine_sample max |err|: f32 {worst[torch.float32]:.3e}, bf16 "
+          f"input {worst[torch.bfloat16]:.3e} (tol {AFFINE_TOL})", flush=True)
+    return worst[torch.float32]
+
+
+def time_affine(cases):
+    """The two launches of one step: the kernel, its plain version and
+    ``F.grid_sample`` (the same function in one PyTorch call, on grids
+    normalized beforehand), summed, with the bound."""
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0,
+                 ops_ms=0.0)
+    for name, img, sy, sx in cases[:2]:
+        h, w = img.shape[2:]
+        grid = torch.stack([sx * (2.0 / (w - 1)) - 1,
+                            sy * (2.0 / (h - 1)) - 1], -1)
+
+        def library():
+            return torch.nn.functional.grid_sample(
+                img, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True)
+
+        dlib = (library() - affine_sample(img, sy, sx)).abs().max().item()
+        ms = cuda_ms(lambda: affine_sample(img, sy, sx))
+        plain_ms = cuda_ms(lambda: affine_sample_plain(img, sy, sx),
+                           reps=11, inner=3)
+        library_ms = cuda_ms(library)
+        bytes_ms, ops_ms = affine_bound_ms(img, sy)
+        bound = max(bytes_ms, ops_ms)
+        print(f"affine_sample {name} {tuple(img.shape)} -> "
+              f"{tuple(sy.shape[1:])} f32: kernel {ms:.5f} ms, plain "
+              f"{plain_ms:.5f} ms, F.grid_sample {library_ms:.5f} ms (max "
+              f"|diff| {dlib:.2e}), bound {bound:.5f} ms "
+              f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; bytes "
+              f"{bytes_ms:.5f}, ops {ops_ms:.5f}), kernel/bound "
+              f"{ms / bound:.2f}", flush=True)
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("library_ms", library_ms), ("bytes_ms", bytes_ms),
+                       ("ops_ms", ops_ms)):
+            total[key] += v
+    return total
+
+
+def drive_augment(gen):
+    """Returns (launches of each kernel in the main-path run, ms/step,
+    samples/s)."""
+    params = init_params(0)
+    color = presets.color_aug_config("chairs")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # an f32 augmented step on the card against the same step, with the
+    # same draws, on the CPU
+    small = TrainSettings(compute_dtype="float32", color=color,
+                          geo=presets.geometry_aug_config(
+                              "chairs", AUG_SMALL_HW, AUG_SMALL_SRC_HW))
+    batch = shifted_batch(gen, 1, AUG_SMALL_SRC_HW)
+    card_trainer = Trainer(small, device="cuda", params=params)
+    cpu_trainer = Trainer(small, device="cpu", params=params)
+    cpu_batch = [t.cpu() for t in batch]
+    draws = card_trainer.draw(1, AUG_SMALL_SRC_HW)
+    card = [t.cpu() for t in card_trainer.prepare(*batch, draws=draws)]
+    cpu = cpu_trainer.prepare(*cpu_batch, draws=draws)
+    derr = max((card[i] - cpu[i]).abs().max().item() for i in (0, 1, 3))
+    inside = cpu[3][:, 0] > 0.99
+    dflow = (card[2] - cpu[2]).abs().amax(1)[inside].max().item()
+    print(f"augment f32 card vs CPU at {AUG_SMALL_SRC_HW} -> {AUG_SMALL_HW}: "
+          f"images and mask max |diff| {derr:.3e} (tol {AUG_IMAGE_TOL}), "
+          f"flow {dflow:.3e} px where the mask > 0.99 (tol "
+          f"{AUG_FLOW_TOL_PX}), {inside.float().mean().item():.2f} of the "
+          f"pixels", flush=True)
+    require(derr <= AUG_IMAGE_TOL, "augmented images card vs CPU")
+    require(dflow <= AUG_FLOW_TOL_PX, "augmented flow card vs CPU")
+    compare_steps("f32 augmented card vs CPU",
+                  step_grads(card_trainer, batch, draws),
+                  step_grads(cpu_trainer, cpu_batch, draws))
+    del card_trainer, cpu_trainer
+
+    # the main path: chairs presets, bf16, batch 8, 384x512 -> 320x448
+    settings = TrainSettings(color=color, geo=presets.geometry_aug_config(
+        "chairs", TRAIN_HW, AUG_SRC_HW))
+    batch = shifted_batch(gen, TRAIN_BATCH, AUG_SRC_HW)
+    trainer = Trainer(settings, device="cuda", params=params)
+    losses = [trainer.train_batch(*batch, lr=TRAIN_LR, sync=True)["loss"]
+              for _ in range(3)]                    # warm-up
+    # the step draws and augments without waiting for the card
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.prepare(*batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = 20
+    kernels = (affine_sample, corr_fwd, corr_bwd_f1, corr_bwd_f2)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    metrics = [trainer.train_batch(*batch, lr=TRAIN_LR)
+               for _ in range(timed)]
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) * 1e3 / timed
+    launches = {k.__name__: k.launches for k in kernels}
+    print(f"augment main path: {timed} steps launched {launches}", flush=True)
+    for name, n in launches.items():
+        per_step = 2 if name == "affine_sample" else 5
+        require(n == per_step * timed, f"{name}: {n} launches in {timed} "
+                f"augmented steps, not {per_step * timed}")
+    losses += [m["loss"].item() for m in metrics]
+    require(all(map(math.isfinite, losses)), f"non-finite loss: {losses}")
+    print(f"augment bf16 {TRAIN_BATCH}x{AUG_SRC_HW[0]}x{AUG_SRC_HW[1]} -> "
+          f"{TRAIN_HW[0]}x{TRAIN_HW[1]}: {ms_step:.3f} ms/step, "
+          f"{TRAIN_BATCH * 1e3 / ms_step:.2f} samples/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss step 1 "
+          f"{losses[0]:.4f}, step {len(losses)} {losses[-1]:.4f}", flush=True)
+    return launches, ms_step, TRAIN_BATCH * 1e3 / ms_step
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -481,34 +679,54 @@ def main() -> int:
     with phase("train"):
         launches, ms_step, samples_s = drive_train(gen)
 
-    def entry(name, replaces, timing, err, shapes, **extra):
+    with phase("augment"):
+        cases = affine_cases(gen)
+        affine_err = check_affine(cases)
+        affine_timing = time_affine(cases)
+        del cases
+        aug_launches, aug_ms_step, aug_samples_s = drive_augment(gen)
+
+    def entry(name, source, replaces, timing, err, launched, shapes,
+              **extra):
         return {
             "name": name, "route": "cuda",
-            "source": "maskflownet_torch/csrc/correlation.cu",
+            "source": f"maskflownet_torch/csrc/{source}.cu",
             "replaces": ", ".join(f"maskflownet_tpu/ops/pallas/"
-                                  f"correlation.py:{line}"
-                                  for line in replaces),
-            "launches": launches[name], "max_abs_err": err,
+                                  f"{source}.py:{line}" for line in replaces),
+            "launches": launched, "max_abs_err": err,
             "ms": timing["ms"], "plain_ms": timing["plain_ms"],
             "bound_ms": max(timing["bytes_ms"], timing["ops_ms"]),
             "bound_by": ("bytes" if timing["bytes_ms"] >= timing["ops_ms"]
                          else "operations"),
-            "library_ms": None, "shapes": shapes,
+            "library_ms": timing.get("library_ms"), "shapes": shapes,
             "train_ms_per_step": ms_step,
-            "train_samples_per_s": samples_s, **extra}
+            "train_samples_per_s": samples_s,
+            "aug_train_ms_per_step": aug_ms_step,
+            "aug_train_samples_per_s": aug_samples_s, **extra}
 
     train_shapes = ("sum over the 5 level shapes of one bf16 train step, "
                     "batch 8 at 320x448; launches in 20 steps")
     print(json.dumps({"kernels": [
-        entry("corr_fwd", (62, 191), timing, max_err,
+        entry("corr_fwd", "correlation", (62, 191), timing, max_err,
+              launches["corr_fwd"],
               "sum over the 5 level shapes of one bf16 forward, batch 4 at "
               "448x1024; launches in 20 train steps",
               launches_infer_forward=infer_launches,
+              launches_aug_train=aug_launches["corr_fwd"],
               slice_ms_per_frame=per_frame),
-        entry("corr_bwd_f1", (104, 232), bwd_timing["corr_bwd_f1"],
-              bwd_err["corr_bwd_f1"], train_shapes),
-        entry("corr_bwd_f2", (127, 253), bwd_timing["corr_bwd_f2"],
-              bwd_err["corr_bwd_f2"], train_shapes)]}))
+        entry("corr_bwd_f1", "correlation", (104, 232),
+              bwd_timing["corr_bwd_f1"], bwd_err["corr_bwd_f1"],
+              launches["corr_bwd_f1"], train_shapes,
+              launches_aug_train=aug_launches["corr_bwd_f1"]),
+        entry("corr_bwd_f2", "correlation", (127, 253),
+              bwd_timing["corr_bwd_f2"], bwd_err["corr_bwd_f2"],
+              launches["corr_bwd_f2"], train_shapes,
+              launches_aug_train=aug_launches["corr_bwd_f2"]),
+        entry("affine_sample", "affine", (52,), affine_timing, affine_err,
+              aug_launches["affine_sample"],
+              "sum over the 2 launches of one augmented step, f32, batch 8: "
+              "(8,6,384,512) and (8,3,384,512) sampled at 320x448; "
+              "launches in 20 augmented steps")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

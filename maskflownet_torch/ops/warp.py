@@ -4,7 +4,9 @@ Counterpart of ``maskflownet_tpu/ops/warp.py:28-36, 133-208`` (its
 ``gather`` method): ``backwarp(img, flow)[n, c, y, x]`` samples
 ``img[n, c, y + flow[n,0,y,x], x + flow[n,1,y,x]]`` from its four corners;
 out-of-image corners contribute zero, and ``clamp=True`` first clamps the
-sample point to the image rectangle.
+sample point to the image rectangle. ``affine_grid`` and
+``grid_sample_normalized`` (``:211-239``) sample at normalized [-1, 1]
+coordinates, as geometric augmentation does.
 """
 
 from __future__ import annotations
@@ -64,4 +66,37 @@ def backwarp(img: torch.Tensor, flow: torch.Tensor, *, clamp: bool = False
              ) -> torch.Tensor:
     """Backward-warp ``img`` (N,C,H,W) by ``flow`` (N,2,H,W) (dy, dx)."""
     sy, sx = base_grid(flow)
+    return backwarp_coords(img, sy, sx, clamp=clamp)
+
+
+def affine_grid(theta: torch.Tensor, height: int, width: int):
+    """Normalized affine sampling grid (``maskflownet_tpu/ops/warp.py:
+    211-229``). ``theta``: (N, 6) rows ``[a, b, tx, c, d, ty]``; target
+    coordinates ``x_t``, ``y_t`` run over [-1, 1] inclusive (align-corners).
+    Returns ``gx = a*x_t + b*y_t + tx`` and ``gy = c*x_t + d*y_t + ty``,
+    each (N, H, W) f32."""
+    ys = torch.linspace(-1.0, 1.0, height, dtype=torch.float32,
+                        device=theta.device)[:, None]
+    xs = torch.linspace(-1.0, 1.0, width, dtype=torch.float32,
+                        device=theta.device)[None, :]
+    t = theta.float()[:, :, None, None]
+    gx = t[:, 0] * xs + t[:, 1] * ys + t[:, 2]
+    gy = t[:, 3] * xs + t[:, 4] * ys + t[:, 5]
+    return gx, gy
+
+
+def normalized_to_pixels(gx: torch.Tensor, gy: torch.Tensor, height: int,
+                         width: int):
+    """Absolute (sy, sx) of normalized [-1, 1] coordinates on an image of
+    ``height`` x ``width`` (align-corners): ``sx = (gx + 1) * (W - 1) / 2``."""
+    return (gy + 1.0) * ((height - 1) / 2.0), (gx + 1.0) * ((width - 1) / 2.0)
+
+
+def grid_sample_normalized(img: torch.Tensor, gx: torch.Tensor,
+                           gy: torch.Tensor, *, clamp: bool = False
+                           ) -> torch.Tensor:
+    """Bilinear sample of ``img`` (N,C,H,W) at normalized coordinates
+    (``maskflownet_tpu/ops/warp.py:232-239``), zero outside unless
+    ``clamp``."""
+    sy, sx = normalized_to_pixels(gx, gy, img.shape[2], img.shape[3])
     return backwarp_coords(img, sy, sx, clamp=clamp)

@@ -2,18 +2,21 @@
 the card.
 
     python -m maskflownet_torch.tools.profile_infer [--path infer|train]
-        [--out PATH]
+        [--aug] [--out PATH]
 
 Seeded weights at the published widths drive, in bf16, either
 ``Predictor.do_batch`` on 4 Sintel-sized pairs (436x1024; ``--path
 infer``, the default) or ``Trainer.train_batch`` on a synthetic
-FlyingChairs batch of 8 at 320x448 (``--path train``), the two slices of
-``chip_smoke.py``. For cuDNN autotuning off and on, in turns (off, on, on,
-off): host time per batch ended by ``torch.cuda.synchronize()`` (median,
-min, max of 20), then one ``torch.profiler`` window of 5 batches giving the
-device time by kernel name and category and the device's idle share of the
-window. Prints a summary and writes the full table as JSON to ``--out``
-(default ``build/profile_<path>.json``).
+FlyingChairs batch of 8 at 320x448 (``--path train``), the slices of
+``chip_smoke.py``. With ``--aug`` the train step augments as the
+FlyingChairs stage does (the chairs presets' colour and geometry, from
+384x512 sources to 320x448 crops). For cuDNN autotuning off and on, in
+turns (off, on, on, off): host time per batch ended by
+``torch.cuda.synchronize()`` (median, min, max of 20), then one
+``torch.profiler`` window of 5 batches giving the device time by kernel
+name and category and the device's idle share of the window. Prints a
+summary and writes the full table as JSON to ``--out`` (default
+``build/profile_<path>[_aug].json``).
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ from pathlib import Path
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from maskflownet_torch.config import (ORIG_SHAPE, color_aug_config,
+                                      geometry_aug_config)
 from maskflownet_torch.inference import Predictor
 from maskflownet_torch.models import init_params
 from maskflownet_torch.training import TrainSettings, Trainer
@@ -35,7 +40,8 @@ from maskflownet_torch.training import TrainSettings, Trainer
 # path -> (batch, height, width)
 SHAPES = {"infer": (4, 436, 1024), "train": (8, 320, 448)}
 # kernel-name fragments -> category, first match wins
-CATEGORIES = (("corr_fwd_kernel", "correlation (hand kernel)"),
+CATEGORIES = (("affine_sample_kernel", "augmentation sampler (hand kernel)"),
+              ("corr_fwd_kernel", "correlation (hand kernel)"),
               ("corr_bwd_f", "correlation gradients (hand kernels)"),
               ("multi_tensor", "optimizer (Adam)"),
               ("conv", "convolution"), ("cudnn", "convolution"),
@@ -120,16 +126,22 @@ def _profile(step, steps):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=sorted(SHAPES), default="infer")
+    ap.add_argument("--aug", action="store_true",
+                    help="train with the chairs colour and geometry "
+                         "augmentation, from 384x512 sources")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    if args.aug and args.path != "train":
+        ap.error("--aug needs --path train")
     batch, height, width = SHAPES[args.path]
+    src_hw = ORIG_SHAPE["chairs"] if args.aug else (height, width)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    shape = (batch, 3, height, width)
+    shape = (batch, 3) + src_hw
     img1 = torch.rand(shape, generator=gen, device="cuda")
     img2 = torch.rand(shape, generator=gen, device="cuda")
     if args.path == "infer":
@@ -138,16 +150,21 @@ def main(argv=None) -> int:
         def step():
             pred.do_batch(img1, img2)
     else:
-        trainer = Trainer(TrainSettings(), device="cuda",
-                          params=init_params(0))
-        flow = torch.randn((batch, 2, height, width), generator=gen,
+        settings = TrainSettings()
+        if args.aug:
+            settings = TrainSettings(
+                color=color_aug_config("chairs"),
+                geo=geometry_aug_config("chairs", (height, width), src_hw))
+        trainer = Trainer(settings, device="cuda", params=init_params(0))
+        flow = torch.randn((batch, 2) + src_hw, generator=gen,
                            device="cuda")
 
         def step():
             trainer.train_batch(255 * img1, 255 * img2, flow)
 
-    report = dict(card=smi, path=args.path, batch=batch, hw=[height, width],
-                  dtype="bf16", runs=[])
+    report = dict(card=smi, path=args.path, aug=args.aug, batch=batch,
+                  hw=[height, width], source_hw=list(src_hw), dtype="bf16",
+                  runs=[])
     for bench in (False, True, True, False):
         torch.backends.cudnn.benchmark = bench
         _host_ms(step, 3)                                    # warm-up
@@ -166,7 +183,8 @@ def main(argv=None) -> int:
             print(f"    {cat:28s} {us / 1e3:8.3f} ms/batch")
         for name, us in prof["top_kernels_us_per_step"][:12]:
             print(f"    {us / 1e3:8.3f} ms  {name[:110]}")
-    out = Path(args.out or f"build/profile_{args.path}.json")
+    out = Path(args.out or f"build/profile_{args.path}"
+                           f"{'_aug' if args.aug else ''}.json")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
     print(f"wrote {out}")

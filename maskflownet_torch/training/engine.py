@@ -2,19 +2,26 @@
 counterpart of ``maskflownet_tpu/training/engine.py:43-58, 104-198,
 268-392``.
 
-One step of ``Trainer.train_batch``: images / 255 in the compute dtype, mask
-/ 255 broadcast to full resolution, ``centralize``, the MaskFlownet_S
-forward, the mean multiscale EPE and the ``epe`` metric of the 4x
-upsampled finest flow, backward (the cost volume's gradient runs the
-hand-written kernels on the card), then Adam (b1 0.9, b2 0.999, eps 1e-8,
-bias-corrected as ``optax.scale_by_adam``) applied as ``-lr * update``
-with the lr given per call. The parameters are held in f32 (the master
-weights) and cast to the compute dtype inside the forward, so their
-gradients come back in f32.
+One step of ``Trainer.train_batch``, in the order of the JAX step
+(``engine.py:115-134``): images / 255 in f32; with ``geo``, the geometric
+augmentation in f32 from the geometry config's ``orig_shape`` sources to
+its ``target_shape`` crops (images returned in the compute dtype, labels
+in f32), otherwise a cast to the compute dtype; the mask (/ 255)
+broadcast to the labels' resolution; with ``color``, the colour
+augmentation in the compute dtype; ``centralize``; the MaskFlownet_S
+forward, the mean multiscale EPE and
+the ``epe`` metric of the 4x upsampled finest flow, backward (the cost
+volume's gradient runs the hand-written kernels on the card), then Adam
+(b1 0.9, b2 0.999, eps 1e-8, bias-corrected as ``optax.scale_by_adam``)
+applied as ``-lr * update`` with the lr given per call. The parameters
+are held in f32 (the master weights) and cast to the compute dtype inside
+the forward, so their gradients come back in f32.
 
-This slice trains MaskFlownet_S without augmentation and without a frozen
-head; settings that ask for either raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+The augmentations draw from one ``torch.Generator`` that the ``Trainer``
+owns on its device, seeded from ``seed``: geometry first, then colour,
+without waiting for the device. This slice trains MaskFlownet_S without a
+frozen head; settings that ask for the cascade or ``fix_head`` raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -25,6 +32,9 @@ import numpy as np
 import torch
 
 from maskflownet_torch import get_device, interop, nn
+from maskflownet_torch.augment import (ColorAugConfig, GeometryAugConfig,
+                                       color_augmentation, draw_color,
+                                       draw_geometry, geometry_augmentation)
 from maskflownet_torch.inference import Predictor, centralize
 from maskflownet_torch.losses import (epe_loss_with_mask, kitti_outlier_rate,
                                       multiscale_epe)
@@ -46,8 +56,8 @@ class TrainSettings:
     compute_dtype: str = "bfloat16"          # forward compute precision
     target_shape: tuple[int, int] = (320, 448)
     orig_shape: tuple[int, int] = (384, 512)
-    geo: object | None = None                # geometric augmentation config
-    color: object | None = None              # colour augmentation config
+    geo: GeometryAugConfig | None = None     # geometric augmentation
+    color: ColorAugConfig | None = None      # colour augmentation
     adam_eps: float = 1e-8
 
     def dtype(self) -> torch.dtype:
@@ -58,18 +68,18 @@ class TrainSettings:
 def _refuse_unported(s: TrainSettings) -> None:
     unported = [
         (s.model != "MaskFlownet_S",
-         f"model {s.model!r}: the cascade is ROADMAP queue 1 item 10"),
-        (s.fix_head, "fix_head: ROADMAP queue 1 item 10 (the cascade)"),
-        (s.color is not None,
-         "colour augmentation: ROADMAP queue 1 item 11 (augment/color)"),
-        (s.geo is not None,
-         "geometric augmentation: ROADMAP queue 1 item 12 "
-         "(augment/geometry)"),
+         f"model {s.model!r}: the cascade is ROADMAP queue 1 item 1"),
+        (s.fix_head, "fix_head: ROADMAP queue 1 item 1 (the cascade)"),
     ]
     for asked, what in unported:
         if asked:
             raise NotImplementedError(
                 f"maskflownet_torch.training: not ported yet: {what}")
+
+
+def _to_device(draws, dev):
+    return None if draws is None else {
+        k: None if v is None else v.to(dev) for k, v in draws.items()}
 
 
 class Trainer:
@@ -99,22 +109,40 @@ class Trainer:
         self.opt = torch.optim.Adam(list(self.params.values()), lr=1e-4,
                                     betas=(0.9, 0.999), eps=settings.adam_eps)
         self.steps = 0
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
 
     # ------------------------------------------------------------------
     # training
     # ------------------------------------------------------------------
 
-    def loss(self, img1, img2, flow, mask=None):
-        """The step's loss and metric, before backward: ``(loss, epe)``,
-        0-d f32 tensors, ``loss`` attached to the parameters.
+    def draw(self, b: int, hw: tuple[int, int]):
+        """One step's augmentation draws for a batch of ``b`` at ``hw``
+        from the trainer's generator: ``(geometry draws, colour draws)``,
+        None where that augmentation is off."""
+        s = self.settings
+        geo = (None if s.geo is None else
+               draw_geometry(self.gen, b, s.geo, self.device))
+        color_hw = hw if s.geo is None else tuple(s.geo.target_shape)
+        color = (None if s.color is None else
+                 draw_color(self.gen, b, color_hw, s.dtype(), s.color,
+                            self.device))
+        return geo, color
+
+    def prepare(self, img1, img2, flow, mask=None, draws=None):
+        """The step's input chain: ``(img1, img2, flow, mask)`` as the model
+        and the loss take them -- the centralised images in the compute
+        dtype, flow (B,2,H,W) and mask (B,1,H,W) in f32, at the geometry
+        config's ``target_shape`` when ``geo`` is set.
 
         img1/img2: (B,3,H,W) in [0, 255]; flow: (B,2,H,W) (dy, dx) pixels;
         mask: None, (B,H,W) or (B,1,h,w) broadcastable to (B,1,H,W), in
-        [0, 255]. Tensors or arrays; H and W multiples of 64."""
+        [0, 255]. Tensors or arrays. ``draws``: the result of
+        :meth:`draw`, moved to this device; without it the step draws its
+        own."""
         s = self.settings
         dev, dtype = self.device, s.dtype()
-        img1 = torch.as_tensor(img1, device=dev).float().div(255.0).to(dtype)
-        img2 = torch.as_tensor(img2, device=dev).float().div(255.0).to(dtype)
+        img1 = torch.as_tensor(img1, device=dev).float().div(255.0)
+        img2 = torch.as_tensor(img2, device=dev).float().div(255.0)
         flow = torch.as_tensor(flow, device=dev).float()
         b, _, h, w = flow.shape
         if mask is None:
@@ -123,10 +151,29 @@ class Trainer:
             mask = torch.as_tensor(mask, device=dev).float() / 255.0
             if mask.dim() == 3:
                 mask = mask[:, None]
-        mask = mask.expand(b, 1, h, w)
+        if draws is None:
+            draws = self.draw(b, (h, w))
+        geo_draws, color_draws = (_to_device(d, dev) for d in draws)
+        if s.geo is not None:
+            img1, img2, flow, mask = geometry_augmentation(
+                img1, img2, flow, mask, geo_draws, s.geo, image_dtype=dtype)
+        else:
+            img1, img2 = img1.to(dtype), img2.to(dtype)
+        mask = mask.expand(b, 1, *flow.shape[2:])
+        if s.color is not None:
+            img1, img2 = color_augmentation(img1, img2, color_draws, s.color)
         img1, img2 = centralize(img1, img2)
-        preds, _, _ = maskflownet_s(nn.apply_ctx(self.params, dtype), img1,
-                                    img2, s.model_cfg, cascade_sources=False)
+        return img1, img2, flow, mask
+
+    def loss(self, img1, img2, flow, mask=None, draws=None):
+        """The step's loss and metric, before backward: ``(loss, epe)``,
+        0-d f32 tensors, ``loss`` attached to the parameters. Arguments as
+        :meth:`prepare`; the model's H and W are multiples of 64."""
+        s = self.settings
+        img1, img2, flow, mask = self.prepare(img1, img2, flow, mask, draws)
+        preds, _, _ = maskflownet_s(nn.apply_ctx(self.params, s.dtype()),
+                                    img1, img2, s.model_cfg,
+                                    cascade_sources=False)
         loss = multiscale_epe(flow, mask, preds, weights=s.loss_weights,
                               match=s.loss_match, q=s.q).mean()
         with torch.no_grad():
@@ -143,11 +190,11 @@ class Trainer:
         self.opt.zero_grad(set_to_none=True)
 
     def train_batch(self, img1, img2, flow, mask=None, lr: float = 1e-4,
-                    sync: bool = False):
-        """One optimisation step (arguments as :meth:`loss`). Returns
+                    sync: bool = False, draws=None):
+        """One optimisation step (arguments as :meth:`prepare`). Returns
         ``{"loss", "epe"}``, the values before the update: 0-d tensors on
         the device that do not wait for it, or floats with ``sync=True``."""
-        loss, epe = self.loss(img1, img2, flow, mask)
+        loss, epe = self.loss(img1, img2, flow, mask, draws)
         loss.backward()
         self.apply_gradients(lr)
         self.steps += 1
