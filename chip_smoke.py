@@ -30,7 +30,9 @@ Phases, each timed on its own line:
      launches (batch 8, 384x512 sources sampled at 320x448, coordinates
      from ``draw_geometry`` with the chairs presets) and at an odd shape
      whose coordinates leave the image, f32 and bf16 input; its time
-     beside its bound, the plain version's and ``F.grid_sample``'s; an
+     with the L2 flushed before each call, beside its bound (the source
+     pixels the coordinates touch, read once), the plain version's and
+     ``F.grid_sample``'s; an
      f32 augmented step on the card against the same step on the CPU with
      the same draws (batch 1, 96x128 -> 64x128); then the main path --
      ``Trainer.train_batch`` with colour and geometry on, bf16, batch 8,
@@ -471,16 +473,63 @@ def drive_train(gen):
     return launches, ms_step, TRAIN_BATCH * 1e3 / ms_step
 
 
-def affine_bound_ms(img, sy):
-    """Least time for one sampling: the image and both coordinate maps read
-    once, the f32 output written once, against ~8 flops a channel and 10 a
-    pixel at the f32 peak."""
+def cuda_ms_cold(fn, reps: int = 25) -> float:
+    """Median over ``reps`` of one call's time by CUDA events, each call
+    after a read of a buffer four times the L2's size, so that the call
+    reads its inputs from HBM as it does in the step, not from the L2 that
+    a back-to-back launch left them in. A read leaves clean lines, so the
+    call pays no write-back of the flush."""
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 0)
+    # as many f32 elements as the L2 has bytes: four times its size
+    flush = torch.ones(max(l2, 50 * 2 ** 20), dtype=torch.float32,
+                       device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        flush.sum()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def touched_source_pixels(img, sy, sx) -> int:
+    """Source pixels of one channel plane, summed over the batch, that the
+    bilinear samples at (sy, sx) read: every in-image corner of every
+    point, each pixel counted once."""
+    n, _, h, w = img.shape
+    y0 = torch.floor(sy).long()
+    x0 = torch.floor(sx).long()
+    base = (torch.arange(n, device=img.device) * (h * w)).view(n, 1, 1)
+    hit = torch.zeros(n * h * w, dtype=torch.bool, device=img.device)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            yy, xx = y0 + dy, x0 + dx
+            inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+            hit[(base + yy * w + xx)[inside]] = True
+    return int(hit.sum().item())
+
+
+def affine_bound_ms(img, sy, sx):
+    """Least time for one sampling: the source pixels this run's
+    coordinates touch read once in every channel, both coordinate maps
+    read once and the f32 output written once, against ~8 flops a channel
+    and 10 a pixel at the f32 peak. Returns (bytes ms, operations ms, the
+    touched share of the source)."""
     n, c, h, w = img.shape
     ho, wo = sy.shape[1:]
     pixels = n * ho * wo
-    nbytes = img.numel() * img.element_size() + 2 * pixels * 4 + pixels * c * 4
+    touched = touched_source_pixels(img, sy, sx)
+    nbytes = (touched * c * img.element_size() + 2 * pixels * 4
+              + pixels * c * 4)
     return (nbytes / HBM_BYTES_PER_S * 1e3,
-            pixels * (8 * c + 10) / PEAK_FLOPS[torch.float32] * 1e3)
+            pixels * (8 * c + 10) / PEAK_FLOPS[torch.float32] * 1e3,
+            touched / (n * h * w))
 
 
 def affine_cases(gen):
@@ -531,9 +580,11 @@ def check_affine(cases):
 def time_affine(cases):
     """The two launches of one step: the kernel, its plain version and
     ``F.grid_sample`` (the same function in one PyTorch call, on grids
-    normalized beforehand), summed, with the bound."""
-    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0,
-                 ops_ms=0.0)
+    normalized beforehand), each with the L2 flushed before the call,
+    summed, with the bound; the kernel also back to back, and the host
+    time of one call of its wrapper."""
+    total = dict(ms=0.0, warm_ms=0.0, host_ms=0.0, plain_ms=0.0,
+                 library_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
     for name, img, sy, sx in cases[:2]:
         h, w = img.shape[2:]
         grid = torch.stack([sx * (2.0 / (w - 1)) - 1,
@@ -545,22 +596,32 @@ def time_affine(cases):
                 align_corners=True)
 
         dlib = (library() - affine_sample(img, sy, sx)).abs().max().item()
-        ms = cuda_ms(lambda: affine_sample(img, sy, sx))
-        plain_ms = cuda_ms(lambda: affine_sample_plain(img, sy, sx),
-                           reps=11, inner=3)
-        library_ms = cuda_ms(library)
-        bytes_ms, ops_ms = affine_bound_ms(img, sy)
+        warm_ms = cuda_ms(lambda: affine_sample(img, sy, sx))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):            # well inside the launch queue
+            affine_sample(img, sy, sx)
+        host_ms = (time.perf_counter() - t0) * 1e3 / 100
+        torch.cuda.synchronize()
+        ms = cuda_ms_cold(lambda: affine_sample(img, sy, sx))
+        plain_ms = cuda_ms_cold(lambda: affine_sample_plain(img, sy, sx),
+                                reps=11)
+        library_ms = cuda_ms_cold(library)
+        bytes_ms, ops_ms, share = affine_bound_ms(img, sy, sx)
         bound = max(bytes_ms, ops_ms)
         print(f"affine_sample {name} {tuple(img.shape)} -> "
-              f"{tuple(sy.shape[1:])} f32: kernel {ms:.5f} ms, plain "
-              f"{plain_ms:.5f} ms, F.grid_sample {library_ms:.5f} ms (max "
-              f"|diff| {dlib:.2e}), bound {bound:.5f} ms "
+              f"{tuple(sy.shape[1:])} f32, L2 flushed before each call: "
+              f"kernel {ms:.5f} ms (back to back, L2-warm: {warm_ms:.5f}; "
+              f"the wrapper's host time a call {host_ms:.5f}), "
+              f"plain {plain_ms:.5f} ms, F.grid_sample {library_ms:.5f} ms "
+              f"(max |diff| {dlib:.2e}), bound {bound:.5f} ms "
               f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; bytes "
-              f"{bytes_ms:.5f}, ops {ops_ms:.5f}), kernel/bound "
-              f"{ms / bound:.2f}", flush=True)
-        for key, v in (("ms", ms), ("plain_ms", plain_ms),
-                       ("library_ms", library_ms), ("bytes_ms", bytes_ms),
-                       ("ops_ms", ops_ms)):
+              f"{bytes_ms:.5f} with {share:.3f} of the source touched, ops "
+              f"{ops_ms:.5f}), kernel/bound {ms / bound:.2f}", flush=True)
+        for key, v in (("ms", ms), ("warm_ms", warm_ms),
+                       ("host_ms", host_ms), ("plain_ms", plain_ms),
+                       ("library_ms", library_ms),
+                       ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
             total[key] += v
     return total
 
@@ -726,7 +787,9 @@ def main() -> int:
               aug_launches["affine_sample"],
               "sum over the 2 launches of one augmented step, f32, batch 8: "
               "(8,6,384,512) and (8,3,384,512) sampled at 320x448; "
-              "launches in 20 augmented steps")]}))
+              "launches in 20 augmented steps; ms with the L2 flushed "
+              "before each call", ms_l2_warm=affine_timing["warm_ms"],
+              host_ms_per_call=affine_timing["host_ms"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,9 +4,10 @@ Counterpart of ``maskflownet_tpu/ops/warp.py:28-36, 133-208`` (its
 ``gather`` method): ``backwarp(img, flow)[n, c, y, x]`` samples
 ``img[n, c, y + flow[n,0,y,x], x + flow[n,1,y,x]]`` from its four corners;
 out-of-image corners contribute zero, and ``clamp=True`` first clamps the
-sample point to the image rectangle. ``affine_grid`` and
-``grid_sample_normalized`` (``:211-239``) sample at normalized [-1, 1]
-coordinates, as geometric augmentation does.
+sample point to the image rectangle. ``affine_grid`` (``:211-229``) and
+``normalized_to_pixels`` (the coordinate map of ``grid_sample_normalized``,
+``:232-239``) give geometric augmentation its sampling coordinates; it
+samples at them through ``ops/affine.py::affine_sample``.
 """
 
 from __future__ import annotations
@@ -91,12 +92,3 @@ def normalized_to_pixels(gx: torch.Tensor, gy: torch.Tensor, height: int,
     ``height`` x ``width`` (align-corners): ``sx = (gx + 1) * (W - 1) / 2``."""
     return (gy + 1.0) * ((height - 1) / 2.0), (gx + 1.0) * ((width - 1) / 2.0)
 
-
-def grid_sample_normalized(img: torch.Tensor, gx: torch.Tensor,
-                           gy: torch.Tensor, *, clamp: bool = False
-                           ) -> torch.Tensor:
-    """Bilinear sample of ``img`` (N,C,H,W) at normalized coordinates
-    (``maskflownet_tpu/ops/warp.py:232-239``), zero outside unless
-    ``clamp``."""
-    sy, sx = normalized_to_pixels(gx, gy, img.shape[2], img.shape[3])
-    return backwarp_coords(img, sy, sx, clamp=clamp)

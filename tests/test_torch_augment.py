@@ -46,7 +46,6 @@ from maskflownet_torch.augment.geometry import sample_grids
 from maskflownet_torch.config import presets
 from maskflownet_torch.ops.affine import affine_sample, affine_sample_plain
 from maskflownet_torch.ops.warp import (affine_grid, backwarp,
-                                        grid_sample_normalized,
                                         normalized_to_pixels)
 from maskflownet_torch.training import TrainSettings, Trainer
 
@@ -156,22 +155,33 @@ def _assert_geometry_close(got, ref, image_tol):
 # ops
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("clamp", [False, True])
-def test_affine_grid_and_grid_sample_match_jax(clamp):
+@pytest.mark.parametrize("leaves_image", [False, True])
+def test_affine_grid_and_grid_sample_match_jax(leaves_image):
+    """``affine_grid`` against JAX's, and ``affine_sample_plain`` at its
+    pixel coordinates against JAX's ``grid_sample_normalized`` on the same
+    grid: one grid inside the image, one with points outside it, which
+    sample zero padding."""
     rng = np.random.RandomState(0)
-    theta = rng.uniform(-1.5, 1.5, (2, 6)).astype(np.float32)
+    if leaves_image:
+        theta = rng.uniform(-1.5, 1.5, (2, 6)).astype(np.float32)
+    else:            # |a| + |b| + |t| <= 1 keeps every point inside
+        theta = rng.uniform(-0.45, 0.45, (2, 6)).astype(np.float32)
+        theta[:, [2, 5]] *= 0.2
     img = rng.rand(2, 3, 12, 20).astype(np.float32)
     gx, gy = affine_grid(torch.from_numpy(theta), 9, 13)
     jgx, jgy = jax_affine_grid(jnp.asarray(theta), 9, 13)
     np.testing.assert_allclose(gx.numpy(), np.asarray(jgx), atol=1e-6)
     np.testing.assert_allclose(gy.numpy(), np.asarray(jgy), atol=1e-6)
-    assert (gx.abs() > 1).float().mean() > 0.2       # some leave the image
+    outside = torch.maximum(gx.abs(), gy.abs()) > 1
+    if leaves_image:
+        assert outside.float().mean() > 0.2
+    else:
+        assert not outside.any()
     # both samplers on the same grid
-    got = grid_sample_normalized(torch.from_numpy(img),
-                                 torch.from_numpy(np.array(jgx)),
-                                 torch.from_numpy(np.array(jgy)),
-                                 clamp=clamp)
-    ref = jax_grid_sample(_nhwc(torch.from_numpy(img)), jgx, jgy, clamp=clamp)
+    got = affine_sample_plain(torch.from_numpy(img), *normalized_to_pixels(
+        torch.from_numpy(np.array(jgx)), torch.from_numpy(np.array(jgy)),
+        12, 20))
+    ref = jax_grid_sample(_nhwc(torch.from_numpy(img)), jgx, jgy)
     np.testing.assert_allclose(got.numpy(), _nchw(ref).numpy(), atol=1e-6)
 
 
@@ -385,46 +395,48 @@ def _aug_settings(dtype: str):
         color=presets.color_aug_config("chairs"))
 
 
-def _jax_step_inputs(key, img1, img2, flow, mask, geo, color, dtype):
-    """The JAX step body up to the model (``engine.py:115-134``), eagerly."""
-    img1 = img1.astype(jnp.float32) / 255.0
-    img2 = img2.astype(jnp.float32) / 255.0
-    flow = flow.astype(jnp.float32)
-    mask = mask.astype(jnp.float32) / 255.0
-    kg, kc = jax.random.split(key)
-    img1, img2, flow, mask = jax_geometry(kg, img1, img2, flow, mask, geo,
-                                          image_dtype=dtype)
-    mask = jnp.broadcast_to(mask, flow.shape[:3] + (1,))
-    img1, img2 = jax_color(kc, img1, img2, color)
-    img1, img2, _ = jax_centralize(img1, img2)
-    return img1, img2, flow, mask
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_step_input_chain_matches_jax(monkeypatch, dtype):
-    monkeypatch.delenv("MFN_AUG_SAMPLER", raising=False)
+@pytest.fixture(scope="module")
+def step_chain():
+    """A FlyingChairs-like uint8-range batch, the step's key, and the JAX
+    step body (``engine.py:115-134``) run eagerly up to colour: ``/255``,
+    geometry and the mask's broadcast. The geometry runs in f32 for every
+    compute dtype and only casts its images at the end (``geometry.py:
+    381-383``), so both dtypes' cases share it and cast it."""
     rng = np.random.RandomState(4)
     img1 = _smooth(rng, (B, OH, OW, 3), 0, 255)
     img2 = _smooth(rng, (B, OH, OW, 3), 0, 255)
     flow = _smooth(rng, (B, OH, OW, 2), -10, 10)
     mask = 255 * np.clip(_smooth(rng, (B, OH, OW, 1), -0.5, 2.5), 0, 1)
+    key = jax.random.PRNGKey(6)
+    kg, _ = jax.random.split(key)
+    geo = JaxGeoCfg(**dataclasses.asdict(_aug_settings("float32").geo))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("MFN_AUG_SAMPLER", raising=False)
+        j1, j2, jflow, jmask = jax_geometry(
+            kg, jnp.asarray(img1) / 255.0, jnp.asarray(img2) / 255.0,
+            jnp.asarray(flow), jnp.asarray(mask) / 255.0, geo)
+    jmask = jnp.broadcast_to(jmask, jflow.shape[:3] + (1,))
+    return (img1, img2, flow, mask), key, (j1, j2, jflow, jmask)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_step_input_chain_matches_jax(step_chain, dtype):
+    batch, key, (j1, j2, jflow, jmask) = step_chain
     s = _aug_settings(dtype)
     jgeo = JaxGeoCfg(**dataclasses.asdict(s.geo))
     jcolor = JaxColorCfg(**dataclasses.asdict(s.color))
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
-    key = jax.random.PRNGKey(6)
-    ref = _jax_step_inputs(key, *map(jnp.asarray, (img1, img2, flow, mask)),
-                           jgeo, jcolor, jdt)
     kg, kc = jax.random.split(key)
+    j1, j2 = jax_color(kc, j1.astype(jdt), j2.astype(jdt), jcolor)
+    j1, j2, _ = jax_centralize(j1, j2)
     draws = (_jax_geometry_draws(kg, B, jgeo),
              _jax_color_draws(kc, B, (TH, TW), s.dtype(), jcolor))
     trainer = Trainer(s, device="cpu")
-    got = trainer.prepare(*(_nchw(x) for x in (img1, img2, flow, mask)),
-                          draws=draws)
+    got = trainer.prepare(*(_nchw(x) for x in batch), draws=draws)
     assert got[0].dtype == got[1].dtype == s.dtype()
     assert got[2].dtype == got[3].dtype == torch.float32
     image_tol = BF16_TOL if dtype == "bfloat16" else dict(rtol=0, atol=1e-5)
-    _assert_geometry_close(got, ref, image_tol)
+    _assert_geometry_close(got, (j1, j2, jflow, jmask), image_tol)
 
 
 def test_aug_train_steps_are_finite_and_follow_the_seed():
