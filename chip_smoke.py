@@ -7,12 +7,14 @@ Phases, each timed on its own line:
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: every CUDA source of the port, one nvcc each, all at once;
   3. kernels: ``corr_fwd`` against ``correlation_plain`` on the card at the
-     five MaskFlownet_S level shapes of Sintel's 448x1024 working size,
-     batch 4, and ``corr_bwd_f1``/``corr_bwd_f2`` against their plain
-     versions at the five level shapes of the FlyingChairs train step
-     (batch 8, 320x448); each plus md=2 and an odd shape, f32 and bf16,
-     LeakyReLU on and off; then each level's bf16 kernel time (CUDA
-     events, warm, median) beside its bound and the plain version's time;
+     five level shapes of Sintel's 448x1024 working size, batch 4 (md=4
+     and md=2), of the FlyingChairs train step (batch 8, 320x448; md=4)
+     and of the cascade's train step (batch 4, 320x768; md=4 and md=2),
+     and ``corr_bwd_f1``/``corr_bwd_f2`` against their plain versions at
+     the five level shapes of the FlyingChairs train step (md=4) and of
+     the cascade's (md=2); each plus odd shapes, f32 and bf16, LeakyReLU
+     on and off; then each level's bf16 kernel time (CUDA events, warm,
+     median) beside its bound and the plain version's time;
   4. slice: ``Predictor.do_batch`` on 4 Sintel-sized pairs (436x1024) with
      seeded weights at the published widths: f32 with the kernel against
      f32 with the plain correlation, the card against the CPU on a small
@@ -38,8 +40,41 @@ Phases, each timed on its own line:
      ``Trainer.train_batch`` with colour and geometry on, bf16, batch 8,
      384x512 -> 320x448 -- with the launch count of every kernel, ms/step,
      samples/s, peak memory and a finite loss, after checking that the
-     step draws and augments without waiting for the card.
-Then one JSON line describing the kernels, and as the last line
+     step draws and augments without waiting for the card;
+  7. deform: ``deform_fwd`` and ``deform_bwd`` (each set of gradients the
+     paths ask for: dweight; dflow and dweight; all three) against the
+     plain pair ``deform_fwd_plain``/``deform_bwd_plain`` at the four
+     deformable convs of the MaskFlownet_S train step (batch 8, 320x448),
+     the cascade inference's five (batch 4, 448x1024; deform6 the widest,
+     196 channels at 7x16) and its train step's five (batch 4, 320x768),
+     and an odd shape whose windows lie wholly outside the image (flow
+     +-50) or sit at integer flows, f32 and bf16; then each level's bf16
+     time with
+     the L2 flushed before each call, beside its bound, the plain pair's
+     and ``warpconv``'s (forward, and forward + backward);
+  8. cascade: the MaskFlownet cascade with ``deform="kernel"``.
+     ``Predictor.do_batch``: f32 card vs CPU (64x128), f32 kernel vs
+     ``warpconv`` on 4 Sintel-sized pairs (448x1024 working size), then
+     the main path in bf16 with its launch counts (15 ``corr_fwd``, 9
+     ``deform_fwd``) and the ms/frame of both methods. The frozen-head
+     train step (``fix_head``, aug-off, a shifted batch): f32 card vs CPU,
+     f32 kernel vs ``warpconv`` (batch 2, 320x768), then the main path --
+     bf16, batch 4, 320x768 -- with the launch count of every kernel, the
+     gradients each ``deform_bwd`` is asked for (never dx; dweight only at
+     level 6), the head bitwise unchanged, a finite loss, ms/step,
+     samples/s and peak memory. Then one f32 MaskFlownet_S step with
+     ``deform="kernel"`` (the full deform backward) against ``warpconv``.
+Two f32 steps held against each other (card vs CPU, the kernels vs
+``warpconv``) are compared as they run, and again with the second taking
+the first's side of every kink (LeakyReLU inputs, fused cost-volume
+activations and, card vs CPU, the deform coordinates' floors) where the
+two fall on different sides: the gradient behind such a value jumps by the
+difference of the slopes. Without a flipped branch both readings are held
+to the tolerance, with one only the second.
+The warm-up of every bf16 main path records each correlation and deform
+launch by kernel, shape, dtype (and the gradients a deform backward asks
+for) and requires each to be one that phase 3 or 7 held against the plain
+version. Then one JSON line describing the kernels, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line; so does a machine without CUDA.
 """
@@ -58,11 +93,13 @@ from unittest import mock
 import torch
 
 import maskflownet_torch.models.maskflownet as model_module
+import maskflownet_torch.ops.correlation as corr_module
+import maskflownet_torch.ops.deform as deform_module
 from maskflownet_torch.augment import draw_geometry
 from maskflownet_torch.augment.geometry import sample_grids
 from maskflownet_torch.config import presets
 from maskflownet_torch.inference import Predictor
-from maskflownet_torch.models import init_params
+from maskflownet_torch.models import HEAD_SCOPE, ModelConfig, init_params
 from maskflownet_torch.ops import _build
 from maskflownet_torch.ops.affine import affine_sample, affine_sample_plain
 from maskflownet_torch.ops.correlation import (corr_bwd_f1, corr_bwd_f2,
@@ -70,7 +107,11 @@ from maskflownet_torch.ops.correlation import (corr_bwd_f1, corr_bwd_f2,
                                                correlation_bwd_f1_plain,
                                                correlation_bwd_f2_plain,
                                                correlation_plain)
-from maskflownet_torch.ops.warp import normalized_to_pixels
+from maskflownet_torch.ops.deform import (_warpconv, deform_bwd,
+                                          deform_bwd_plain, deform_fwd,
+                                          deform_fwd_plain, weight_to_w9)
+from maskflownet_torch.ops.warp import base_grid, normalized_to_pixels
+from maskflownet_torch.tools import grad_parity
 from maskflownet_torch.training import TrainSettings, Trainer
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, NVIDIA data sheet
@@ -87,6 +128,11 @@ TRAIN_LEVELS = [(2, (8, 32, 80, 112)), (3, (8, 64, 40, 56)),
                 (4, (8, 96, 20, 28)), (5, (8, 128, 10, 14)),
                 (6, (8, 196, 5, 7))]
 TRAIN_EXTRA = [(2, (8, 64, 40, 56)), (4, (1, 8, 9, 13)), (2, (1, 8, 9, 13))]
+# (level, (N, C, H, W)) of the cascade's frozen-head train step: 320x768,
+# batch 4 (its inference works at LEVELS' shapes, 448x1024, batch 4)
+CASCADE_TRAIN_LEVELS = [(2, (4, 32, 80, 192)), (3, (4, 64, 40, 96)),
+                        (4, (4, 96, 20, 48)), (5, (4, 128, 10, 24)),
+                        (6, (4, 196, 5, 12))]
 # f32: kernel and plain version sum over C in different orders; bf16: the
 # kernel's output is one bf16 rounding (<= 2^-8 relative) of the f32 value
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
@@ -117,6 +163,41 @@ AUG_IMAGE_TOL, AUG_FLOW_TOL_PX = 1e-5, 1e-4
 # corr_bwd_f1 reads f2, corr_bwd_f2 reads f1
 BWD = [("corr_bwd_f1", corr_bwd_f1, correlation_bwd_f1_plain, 1),
        ("corr_bwd_f2", corr_bwd_f2, correlation_bwd_f2_plain, 0)]
+# (level, (N, Cin, H, W), Cout) of the deformable convs: the four of the
+# MaskFlownet_S train step (FlyingChairs 320x448, batch 8), then the
+# cascade's widest, deform6 at Sintel's 448x1024, batch 4
+DEFORM_LEVELS = [(5, (8, 128, 10, 14), 128), (4, (8, 96, 20, 28), 96),
+                 (3, (8, 64, 40, 56), 64), (2, (8, 32, 80, 112), 32)]
+DEFORM_L6 = (6, (4, 196, 7, 16), 196)
+# the gradient subsets the paths ask for (dx, dflow, dweight): the frozen
+# cascade's level 6, its levels 5-2, and the S step
+DEFORM_NEEDS = [(False, False, True), (False, True, True), (True, True, True)]
+# kernel vs plain deform, as max |diff| over max |plain| of each output: f32
+# results (every forward in f32, every gradient) sum the same f32 products
+# in another order (and dx with atomics), 1e-5; a bf16 forward output is one
+# bf16 rounding of the f32 value, <= 2^-8 relative
+DEFORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+# the cascade: inference on SLICE_BATCH Sintel-sized pairs; the frozen-head
+# train step at bench.py's cascade row, batch 4 at 320x768
+CASCADE_BATCH, CASCADE_TRAIN_HW = 4, (320, 768)
+# kernel launches of one cascade forward (5 cost volumes at md=4 in the
+# head, 10 at md=2 in stage 2; 4 + 5 deformable convs), and of one
+# frozen-head step, whose backward reaches only stage 2: corru's f1 is a
+# head feature, corrv's two pyramids are stage 2's; every deform's x is a
+# head feature, deform6's flow is the head's
+CASCADE_FWD = {"corr_fwd": 15, "deform_fwd": 9}
+CASCADE_STEP = {"corr_fwd": 15, "corr_bwd_f1": 5, "corr_bwd_f2": 10,
+                "deform_fwd": 9, "deform_bwd": 5}
+KERNELS = (corr_fwd, corr_bwd_f1, corr_bwd_f2, deform_fwd, deform_bwd,
+           affine_sample)
+# the branch values a step comparison replays (grad_parity.branches);
+# kernel vs warpconv leaves out the coordinates, which warpconv takes one
+# pixel further on
+BRANCHES = ("coords", "leaky", "corr")
+# every (kernel, shape, md or Cout, dtype[, needs]) that a check held
+# against its plain version (keys as ``launch_key`` makes them); each main
+# path's launches must lie in it
+CHECKED = set()
 
 
 def require(ok: bool, what: str) -> None:
@@ -174,10 +255,13 @@ def bwd_bound_ms(shape, md: int, dtype: torch.dtype, leaky: bool):
 
 
 def check_kernel(gen):
-    """corr_fwd vs the plain version on every case; returns the largest f32
-    error."""
+    """corr_fwd vs the plain version on every case: md=4 at the level
+    shapes of every main path, md=2 at the cascade's, and the extra cases;
+    returns the largest f32 error."""
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    cases = [(4, s) for _, s in LEVELS] + EXTRA_CASES
+    cases = ([(4, s) for _, s in LEVELS + TRAIN_LEVELS + CASCADE_TRAIN_LEVELS]
+             + [(2, s) for _, s in LEVELS + CASCADE_TRAIN_LEVELS]
+             + EXTRA_CASES)
     for md, shape in cases:
         base1 = torch.randn(shape, generator=gen, device="cuda")
         base2 = torch.randn(shape, generator=gen, device="cuda")
@@ -192,6 +276,7 @@ def check_kernel(gen):
                 torch.testing.assert_close(got.float(), want, **TOL[dtype])
                 err = (got.float() - want).abs().max().item()
                 worst[dtype] = max(worst[dtype], err)
+            CHECKED.add(("corr_fwd", tuple(shape), md, dtype))
         print(f"corr_fwd check md={md} {shape}: ok", flush=True)
     print(f"corr_fwd max |err|: f32 {worst[torch.float32]:.3e} "
           f"(tol {TOL[torch.float32]}), bf16 {worst[torch.bfloat16]:.3e} "
@@ -211,11 +296,14 @@ def _bwd_inputs(shape, md, dtype, leaky, gen):
 
 
 def check_bwd_kernels(gen):
-    """corr_bwd_f1/f2 vs their plain versions at the train step's level
-    shapes and the extra cases; returns the largest f32 error of each."""
+    """corr_bwd_f1/f2 vs their plain versions at the S train step's level
+    shapes (md=4), the cascade step's (md=2) and the extra cases; returns
+    the largest f32 error of each."""
     worst = {(name, dt): 0.0 for name, *_ in BWD
              for dt in (torch.float32, torch.bfloat16)}
-    for md, shape in [(4, s) for _, s in TRAIN_LEVELS] + TRAIN_EXTRA:
+    cases = ([(4, s) for _, s in TRAIN_LEVELS]
+             + [(2, s) for _, s in CASCADE_TRAIN_LEVELS] + TRAIN_EXTRA)
+    for md, shape in cases:
         for dtype in (torch.float32, torch.bfloat16):
             for leaky in (None, 0.1):
                 feats, g, out = _bwd_inputs(shape, md, dtype, leaky, gen)
@@ -234,6 +322,7 @@ def check_bwd_kernels(gen):
                                                **TOL[dtype])
                     err = (got.float() - want).abs().max().item()
                     worst[(name, dtype)] = max(worst[(name, dtype)], err)
+                    CHECKED.add((name, tuple(shape), md, dtype))
         print(f"corr_bwd_f1/f2 check md={md} {shape}: ok", flush=True)
     for name, *_ in BWD:
         print(f"{name} max |err|: f32 {worst[(name, torch.float32)]:.3e} "
@@ -294,21 +383,219 @@ def time_levels(gen, levels=LEVELS):
     return total
 
 
+def deform_inputs(gen, shape, cout, dtype, flow=None):
+    """x, the sample coordinates (sy, sx), w9 and a cotangent g for one
+    deformable conv: x ~ N(0, 1), weights N(0, 1/(9 Cin)) so the outputs
+    are of order 1, the flow ~ N(0, 3^2) pixels unless given."""
+    n, cin, h, w = shape
+    x = torch.randn(shape, generator=gen, device="cuda")
+    if flow is None:
+        flow = 3 * torch.randn((n, 2, h, w), generator=gen, device="cuda")
+    weight = torch.randn((cout, cin, 3, 3), generator=gen,
+                         device="cuda") / math.sqrt(9 * cin)
+    g = torch.randn((n, cout, h, w), generator=gen, device="cuda")
+    sy, sx = base_grid(flow)
+    return (x.to(dtype), flow, weight.to(dtype), sy.contiguous(),
+            sx.contiguous(), weight_to_w9(weight, dtype), g.to(dtype))
+
+
+def abs_err(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item()
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want| (0 when both are 0)."""
+    scale = want.abs().max().item()
+    err = abs_err(got, want)
+    return err / scale if scale else err
+
+
+def deform_cases(gen):
+    """(name, shape, cout, flow or None) of every kernel check: the S train
+    step's levels, the cascade inference's (level 6 first), the cascade
+    step's, an odd shape with its windows pushed fully outside (flow
+    +-50), and the same at integer flows."""
+    n, cin, h, w = 2, 5, 9, 13
+    ints = torch.randint(-3, 4, (n, 2, h, w), generator=gen, device="cuda")
+    cases = [(f"L{lvl}", shape, cout, None)
+             for lvl, shape, cout in DEFORM_LEVELS + [DEFORM_L6]]
+    cases += [(f"cascade inference L{lvl}", shape, shape[1], None)
+              for lvl, shape in LEVELS if lvl != DEFORM_L6[0]]
+    cases += [(f"cascade step L{lvl}", shape, shape[1], None)
+              for lvl, shape in CASCADE_TRAIN_LEVELS]
+    for mag in (50.0, -50.0):
+        cases.append((f"odd flow {mag:+g}", (n, cin, h, w), 7,
+                      torch.full((n, 2, h, w), mag, device="cuda")))
+    cases.append(("odd integer flow", (n, cin, h, w), 7, ints.float()))
+    return cases
+
+
+def check_deform(gen):
+    """deform_fwd and deform_bwd (each gradient subset) against the plain
+    pair on every case, f32 and bf16; returns, for each, the largest f32
+    error as (absolute, relative to max |plain|)."""
+    worst = {(k, dt): 0.0 for k in ("deform_fwd", "deform_bwd") for dt in TOL}
+    worst_abs = dict(worst)
+    for name, shape, cout, flow in deform_cases(gen):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, _, _, sy, sx, w9, g = deform_inputs(gen, shape, cout, dtype,
+                                                   flow)
+            got = deform_fwd(x, sy, sx, w9)
+            torch.cuda.synchronize()
+            want = deform_fwd_plain(x, sy, sx, w9)
+            require(got.dtype == dtype and got.shape == want.shape,
+                    f"deform_fwd output {got.dtype} {tuple(got.shape)}")
+            err = rel_err(got, want)
+            require(err <= DEFORM_TOL[dtype], f"deform_fwd {name} {dtype}: "
+                    f"relative error {err:.3e}")
+            worst[("deform_fwd", dtype)] = max(worst[("deform_fwd", dtype)],
+                                               err)
+            worst_abs[("deform_fwd", dtype)] = max(
+                worst_abs[("deform_fwd", dtype)], abs_err(got, want))
+            CHECKED.add(("deform_fwd", tuple(shape), cout, dtype))
+            if name.startswith("odd flow"):
+                require(want.abs().max().item() == 0 and
+                        got.abs().max().item() == 0,
+                        "windows wholly outside the image give zero")
+            for needs in DEFORM_NEEDS:
+                got = deform_bwd(x, sy, sx, w9, g, needs)
+                torch.cuda.synchronize()
+                want = deform_bwd_plain(x, sy, sx, w9, g, needs)
+                asked = (needs[0], needs[1], needs[1], needs[2])
+                for what, a, b, on in zip(("dx", "dsy", "dsx", "dw"), got,
+                                          want, asked):
+                    require((a is not None) == on and (b is not None) == on,
+                            f"deform_bwd {needs}: {what} returned "
+                            f"{a is not None}, asked {on}")
+                    if not on:
+                        continue
+                    require(a.dtype == torch.float32 and a.shape == b.shape,
+                            f"deform_bwd {what} {a.dtype} {tuple(a.shape)}")
+                    err = rel_err(a, b)
+                    require(err <= DEFORM_TOL[torch.float32],
+                            f"deform_bwd {name} {dtype} {needs} {what}: "
+                            f"relative error {err:.3e}")
+                    worst[("deform_bwd", dtype)] = max(
+                        worst[("deform_bwd", dtype)], err)
+                    worst_abs[("deform_bwd", dtype)] = max(
+                        worst_abs[("deform_bwd", dtype)], abs_err(a, b))
+                CHECKED.add(("deform_bwd", tuple(shape), cout, dtype, needs))
+        print(f"deform check {name} {shape} -> {cout}: ok", flush=True)
+    for k in ("deform_fwd", "deform_bwd"):
+        print(f"{k} max |err|/max|plain|: f32 "
+              f"{worst[(k, torch.float32)]:.3e}, bf16 "
+              f"{worst[(k, torch.bfloat16)]:.3e} (tol {DEFORM_TOL[torch.float32]}"
+              f" f32 results, {DEFORM_TOL[torch.bfloat16]} a bf16 forward); "
+              f"max |err|: f32 {worst_abs[(k, torch.float32)]:.3e}, bf16 "
+              f"{worst_abs[(k, torch.bfloat16)]:.3e}", flush=True)
+    return {k: (worst_abs[(k, torch.float32)], worst[(k, torch.float32)])
+            for k in ("deform_fwd", "deform_bwd")}
+
+
+def deform_bound_ms(shape, cout, dtype, backward: bool):
+    """Least time for one deformable conv: bytes of x, flow, w and out (the
+    backward: x, flow, w, g in, dx, dflow, dw out in f32), each moved once,
+    against 2*N*H*W*9*Cin*Cout flops (twice that backward) at the dtype's
+    peak."""
+    n, cin, h, w = shape
+    size = torch.tensor([], dtype=dtype).element_size()
+    pix = n * h * w
+    wts = 9 * cin * cout
+    flow = 2 * pix * 4
+    if backward:
+        nbytes = ((pix * cin + wts + pix * cout) * size + flow
+                  + (pix * cin + wts) * 4 + flow)
+    else:
+        nbytes = (pix * cin + wts + pix * cout) * size + flow
+    ops = 2 * pix * 9 * cin * cout * (2 if backward else 1)
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_FLOPS[dtype] * 1e3
+
+
+def time_deform(gen):
+    """Per level, bf16: the kernels, the plain pair and warpconv (forward,
+    and forward + full backward), each a single call after an L2 flush,
+    beside the bounds. Returns per-level rows and the sums over the train
+    step's four levels."""
+    rows = []
+    for lvl, shape, cout in DEFORM_LEVELS + [DEFORM_L6]:
+        x, flow, weight, sy, sx, w9, g = deform_inputs(gen, shape, cout,
+                                                       torch.bfloat16)
+        xg = x.detach().requires_grad_()
+        fg = flow.detach().requires_grad_()
+        wg = weight.detach().requires_grad_()
+
+        def wc_fwd():
+            with torch.no_grad():
+                return _warpconv(x, flow, weight, None)
+
+        def wc_fwd_bwd():
+            torch.autograd.grad(_warpconv(xg, fg, wg, None), (xg, fg, wg), g)
+
+        r = dict(level=lvl, shape=shape, cout=cout)
+        for key, fn in (("fwd", lambda: deform_fwd(x, sy, sx, w9)),
+                        ("bwd", lambda: deform_bwd(x, sy, sx, w9, g))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):         # well inside the launch queue
+                fn()
+            r[f"host_{key}_ms"] = (time.perf_counter() - t0) * 1e3 / 50
+            torch.cuda.synchronize()
+        r["fwd_ms"] = cuda_ms_cold(lambda: deform_fwd(x, sy, sx, w9))
+        r["bwd_ms"] = cuda_ms_cold(lambda: deform_bwd(x, sy, sx, w9, g))
+        r["plain_fwd_ms"] = cuda_ms_cold(
+            lambda: deform_fwd_plain(x, sy, sx, w9), reps=11)
+        r["plain_bwd_ms"] = cuda_ms_cold(
+            lambda: deform_bwd_plain(x, sy, sx, w9, g), reps=11)
+        r["warpconv_fwd_ms"] = cuda_ms_cold(wc_fwd)
+        r["warpconv_fwd_bwd_ms"] = cuda_ms_cold(wc_fwd_bwd)
+        for key, bwd in (("fwd", False), ("bwd", True)):
+            b, o = deform_bound_ms(shape, cout, torch.bfloat16, bwd)
+            r[f"{key}_bytes_ms"], r[f"{key}_ops_ms"] = b, o
+            r[f"{key}_bound_ms"] = max(b, o)
+        print(f"deform level {lvl} {shape} -> {cout} bf16, L2 flushed before "
+              f"each call: fwd kernel {r['fwd_ms']:.5f} ms (bound "
+              f"{r['fwd_bound_ms']:.5f}, "
+              f"{'bytes' if r['fwd_bytes_ms'] >= r['fwd_ops_ms'] else 'operations'}"
+              f"; kernel/bound {r['fwd_ms'] / r['fwd_bound_ms']:.1f}), plain "
+              f"{r['plain_fwd_ms']:.5f}, warpconv {r['warpconv_fwd_ms']:.5f}; "
+              f"full bwd kernel {r['bwd_ms']:.5f} ms (bound "
+              f"{r['bwd_bound_ms']:.5f}, "
+              f"{'bytes' if r['bwd_bytes_ms'] >= r['bwd_ops_ms'] else 'operations'}"
+              f"; kernel/bound {r['bwd_ms'] / r['bwd_bound_ms']:.1f}), plain "
+              f"{r['plain_bwd_ms']:.5f}; fwd+bwd kernel "
+              f"{r['fwd_ms'] + r['bwd_ms']:.5f} vs warpconv "
+              f"{r['warpconv_fwd_bwd_ms']:.5f} ms; the wrappers' host time "
+              f"a call: fwd {r['host_fwd_ms']:.5f}, bwd "
+              f"{r['host_bwd_ms']:.5f} ms", flush=True)
+        rows.append(r)
+    train = rows[:len(DEFORM_LEVELS)]
+    total = {k: sum(r[k] for r in train) for k in rows[0]
+             if k.endswith("_ms")}
+    print(f"deform, the train step's 4 levels summed: fwd kernel "
+          f"{total['fwd_ms']:.5f} ms (bound {total['fwd_bound_ms']:.5f}), "
+          f"bwd kernel {total['bwd_ms']:.5f} ms (bound "
+          f"{total['bwd_bound_ms']:.5f}), warpconv fwd "
+          f"{total['warpconv_fwd_ms']:.5f}, fwd+bwd "
+          f"{total['warpconv_fwd_bwd_ms']:.5f}", flush=True)
+    return rows, total
+
+
+def check_outputs(outs, b, hw, what):
+    """Predictor.do_batch's (flow, occ, warped): shapes, finite."""
+    flow, occ, warped = outs
+    for t, c in ((flow, 2), (occ, 1), (warped, 3)):
+        require(t.shape == (b, c) + tuple(hw), f"{what}: output shape "
+                f"{tuple(t.shape)}")
+        require(bool(torch.isfinite(t).all()), f"{what}: non-finite output")
+
+
 def drive_slice(gen):
     """Returns (launches in one bf16 main-path forward, ms per frame)."""
     params = init_params(0)
     h, w = SLICE_HW
     img1 = torch.rand((SLICE_BATCH, 3, h, w), generator=gen, device="cuda")
     img2 = torch.rand((SLICE_BATCH, 3, h, w), generator=gen, device="cuda")
-
-    def check(outs, what):
-        flow, occ, warped = outs
-        require(flow.shape == (SLICE_BATCH, 2, h, w), f"{what}: flow shape")
-        require(occ.shape == (SLICE_BATCH, 1, h, w), f"{what}: occ shape")
-        require(warped.shape == (SLICE_BATCH, 3, h, w),
-                f"{what}: warped shape")
-        for t in outs:
-            require(bool(torch.isfinite(t).all()), f"{what}: non-finite output")
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -322,8 +609,8 @@ def drive_slice(gen):
         plain = p32.do_batch(img1, img2)
     torch.cuda.synchronize()
     require(corr_fwd.launches == 5, "the plain path launched the kernel")
-    check(kern, "f32 kernel path")
-    check(plain, "f32 plain path")
+    check_outputs(kern, SLICE_BATCH, (h, w), "f32 kernel path")
+    check_outputs(plain, SLICE_BATCH, (h, w), "f32 plain path")
     dflow = (kern[0] - plain[0]).abs().max().item()
     print(f"slice f32 kernel vs plain correlation: max |dflow| {dflow:.3e} px "
           f"(tol {FLOW_TOL_PX}), |flow| max {kern[0].abs().max().item():.3f} "
@@ -342,16 +629,18 @@ def drive_slice(gen):
     del p32, kern, plain
 
     pbf = Predictor(params, device="cuda", dtype=torch.bfloat16)
-    for _ in range(3):                             # warm-up
-        pbf.do_batch(img1, img2)
+    with record_launches() as calls:
+        for _ in range(3):                         # warm-up
+            pbf.do_batch(img1, img2)
     torch.cuda.synchronize()
+    require_checked(calls, "slice bf16 main path")
     corr_fwd.launches = 0
     out = pbf.do_batch(img1, img2)                 # the main path, counted
     torch.cuda.synchronize()
     launches = corr_fwd.launches
     require(launches == 5,
             f"{launches} kernel launches in the main-path forward, not 5")
-    check(out, "bf16 main path")
+    check_outputs(out, SLICE_BATCH, (h, w), "bf16 main path")
     times = []
     torch.cuda.reset_peak_memory_stats()
     for _ in range(20):
@@ -387,26 +676,58 @@ def shifted_batch(gen, b: int, hw, shift=(3, -2)):
     return img1, img2, flow
 
 
-def step_grads(trainer, batch, draws=None):
-    """Loss and every parameter's gradient of one step (no update)."""
-    loss, _ = trainer.loss(*batch, draws=draws)
-    loss.backward()
-    grads = {k: p.grad.detach().cpu() for k, p in trainer.params.items()}
-    trainer.opt.zero_grad(set_to_none=True)
-    return loss.item(), grads
+# (loss, grads, branch values) of one step, with or without another
+# step's branches replayed (``grad_parity.branches``: the deformable convs'
+# sample coordinates, the LeakyReLUs' inputs, the cost volumes' outputs)
+step_grads = grad_parity.step
+
+
+def step_errors(what, got, want):
+    """The loss's relative difference and the worst parameter's
+    ``|dgrad| / |grad|`` with its name, of two step_grads results."""
+    (lg, gg, _), (lw, gw, _) = got, want
+    require(gg.keys() == gw.keys(), f"{what}: different parameters have "
+            "gradients")
+    worst, name = max((((gg[k] - gw[k]).norm() / gw[k].norm()).item(), k)
+                      for k in gw if gw[k].norm() > 0)
+    return abs(lg - lw) / abs(lw), worst, name
 
 
 def compare_steps(what, got, want):
-    """Require (loss, grads) ``got`` within LOSS_RTOL / GRAD_RTOL of
+    """Require step_grads result ``got`` within LOSS_RTOL / GRAD_RTOL of
     ``want``; print the worst relative gradient error."""
-    (lg, gg), (lw, gw) = got, want
-    worst = max(((gg[k] - gw[k]).norm() / gw[k].norm()).item() for k in gw
-                if gw[k].norm() > 0)
-    print(f"train {what}: loss {lg:.7f} vs {lw:.7f} (rel "
-          f"{abs(lg - lw) / abs(lw):.3e}, tol {LOSS_RTOL}); worst parameter "
-          f"|dgrad|/|grad| {worst:.3e} (tol {GRAD_RTOL})", flush=True)
-    require(abs(lg - lw) <= LOSS_RTOL * abs(lw), f"{what}: loss")
+    loss_rel, worst, name = step_errors(what, got, want)
+    print(f"train {what}: loss {got[0]:.7f} vs {want[0]:.7f} (rel "
+          f"{loss_rel:.3e}, tol {LOSS_RTOL}); worst parameter "
+          f"|dgrad|/|grad| {worst:.3e} ({name}; tol {GRAD_RTOL})",
+          flush=True)
+    require(loss_rel <= LOSS_RTOL, f"{what}: loss")
     require(worst <= GRAD_RTOL, f"{what}: gradients")
+
+
+def compare_on_branches(what, got_step, want_step, keys=BRANCHES):
+    """Hold one step, ``got_step(replay)``, against another,
+    ``want_step(replay)`` (each a step_grads result). A value within
+    rounding of a kink -- a LeakyReLU's 0, a sample coordinate's integer
+    -- may fall on different sides in the two runs, and the gradient
+    behind it then jumps by the whole difference of the slopes (PERF.md
+    §6; ``tools/grad_parity.py``). So the two are compared as they run,
+    the loss held to LOSS_RTOL and the gradients to GRAD_RTOL unless a
+    branch of ``keys`` differs; then the second again on the first's
+    branches of ``keys``, held to both. Returns the first's result."""
+    got, want = got_step(None), want_step(None)
+    flipped = {k: v for k, v in grad_parity.flips(got[2], want[2]).items()
+               if k in keys and v}
+    loss_rel, worst, name = step_errors(what, got, want)
+    print(f"train {what}, as they run: loss rel {loss_rel:.3e}, worst "
+          f"parameter |dgrad|/|grad| {worst:.3e} ({name}); branches on "
+          f"different sides: {flipped or 'none'}", flush=True)
+    require(loss_rel <= LOSS_RTOL, f"{what}: loss")
+    require(worst <= GRAD_RTOL or bool(flipped),
+            f"{what}: gradients, with every branch on the same side")
+    compare_steps(f"{what}, on the first's branches", got,
+                  want_step({k: got[2][k] for k in keys}))
+    return got
 
 
 def drive_train(gen):
@@ -421,10 +742,14 @@ def drive_train(gen):
     # the tests hold against JAX); 64x128, the smallest x64 shape with W
     # and H unequal
     small = shifted_batch(gen, 1, (64, 128))
-    card = step_grads(Trainer(f32, device="cuda", params=params), small)
-    cpu = step_grads(Trainer(f32, device="cpu", params=params),
-                     [t.cpu() for t in small])
-    compare_steps("f32 card vs CPU at 64x128", card, cpu)
+    card_trainer = Trainer(f32, device="cuda", params=params)
+    cpu_trainer = Trainer(f32, device="cpu", params=params)
+    compare_on_branches(
+        "f32 card vs CPU at 64x128",
+        lambda replay: step_grads(card_trainer, small),
+        lambda replay: step_grads(cpu_trainer, [t.cpu() for t in small],
+                                  replay=replay))
+    del card_trainer, cpu_trainer
 
     # the kernels against the plain correlation, f32, 320x448
     batch = shifted_batch(gen, 2, TRAIN_HW)
@@ -441,9 +766,11 @@ def drive_train(gen):
     # the main path: bf16, batch 8, 320x448
     batch = shifted_batch(gen, TRAIN_BATCH, TRAIN_HW)
     trainer = Trainer(TrainSettings(), device="cuda", params=params)
-    losses = [trainer.train_batch(*batch, lr=TRAIN_LR, sync=True)["loss"]
-              for _ in range(3)]                    # warm-up
+    with record_launches() as calls:
+        losses = [trainer.train_batch(*batch, lr=TRAIN_LR, sync=True)["loss"]
+                  for _ in range(3)]                # warm-up
     torch.cuda.synchronize()
+    require_checked(calls, "train bf16 main path")
     torch.cuda.reset_peak_memory_stats()
     timed = 20
     for k in (corr_fwd, corr_bwd_f1, corr_bwd_f2):
@@ -478,18 +805,28 @@ def cuda_ms_cold(fn, reps: int = 25) -> float:
     after a read of a buffer four times the L2's size, so that the call
     reads its inputs from HBM as it does in the step, not from the L2 that
     a back-to-back launch left them in. A read leaves clean lines, so the
-    call pays no write-back of the flush."""
+    call pays no write-back of the flush. Between the flush and the start
+    event the card sleeps for twice the host time of one call (at up to 2
+    GHz, longer at a lower clock), so the host has queued the whole call
+    before the card starts it: the events time the device, not the
+    host's launches."""
     l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 0)
     # as many f32 elements as the L2 has bytes: four times its size
     flush = torch.ones(max(l2, 50 * 2 ** 20), dtype=torch.float32,
                        device="cuda")
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    sleep_cycles = int(max(host_s, 1e-4) * 2 * 2e9)
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         flush.sum()
+        torch.cuda._sleep(sleep_cycles)
         start.record()
         fn()
         end.record()
@@ -656,9 +993,11 @@ def drive_augment(gen):
           f"pixels", flush=True)
     require(derr <= AUG_IMAGE_TOL, "augmented images card vs CPU")
     require(dflow <= AUG_FLOW_TOL_PX, "augmented flow card vs CPU")
-    compare_steps("f32 augmented card vs CPU",
-                  step_grads(card_trainer, batch, draws),
-                  step_grads(cpu_trainer, cpu_batch, draws))
+    compare_on_branches(
+        "f32 augmented card vs CPU",
+        lambda replay: step_grads(card_trainer, batch, draws=draws),
+        lambda replay: step_grads(cpu_trainer, cpu_batch, replay,
+                                  draws=draws))
     del card_trainer, cpu_trainer
 
     # the main path: chairs presets, bf16, batch 8, 384x512 -> 320x448
@@ -666,8 +1005,10 @@ def drive_augment(gen):
         "chairs", TRAIN_HW, AUG_SRC_HW))
     batch = shifted_batch(gen, TRAIN_BATCH, AUG_SRC_HW)
     trainer = Trainer(settings, device="cuda", params=params)
-    losses = [trainer.train_batch(*batch, lr=TRAIN_LR, sync=True)["loss"]
-              for _ in range(3)]                    # warm-up
+    with record_launches() as calls:
+        losses = [trainer.train_batch(*batch, lr=TRAIN_LR, sync=True)["loss"]
+                  for _ in range(3)]                # warm-up
+    require_checked(calls, "augment bf16 main path")
     # the step draws and augments without waiting for the card
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -699,6 +1040,277 @@ def drive_augment(gen):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss step 1 "
           f"{losses[0]:.4f}, step {len(losses)} {losses[-1]:.4f}", flush=True)
     return launches, ms_step, TRAIN_BATCH * 1e3 / ms_step
+
+
+def launch_counts():
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def reset_counts():
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_key(name: str, args) -> tuple:
+    """(kernel, shape, md or Cout, dtype[, needs]) of one wrapper call, as
+    the checks key what they held against the plain versions: a cost
+    volume by its features, a deformable conv by x, Cout and the
+    gradients asked for."""
+    if name == "corr_fwd":                  # (f1, f2, md, leaky)
+        return name, tuple(args[0].shape), args[2], args[0].dtype
+    if name.startswith("corr_bwd"):         # (g, feature, out, md, leaky)
+        return name, tuple(args[1].shape), args[3], args[1].dtype
+    x, w9 = args[0], args[3]                # (x, sy, sx, w9[, g, needs])
+    key = (name, tuple(x.shape), w9.shape[2], x.dtype)
+    if name == "deform_bwd":
+        needs = args[5] if len(args) > 5 else (True, True, True)
+        key += (tuple(bool(v) for v in needs),)
+    return key
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Record the ``launch_key`` of every correlation and deform kernel
+    launch inside the block, in order."""
+    calls = []
+    spies = []
+    with contextlib.ExitStack() as stack:
+        for module, real in ((corr_module, corr_fwd),
+                             (corr_module, corr_bwd_f1),
+                             (corr_module, corr_bwd_f2),
+                             (deform_module, deform_fwd),
+                             (deform_module, deform_bwd)):
+            def spy(*args, _real=real):
+                calls.append(launch_key(_real.__name__, args))
+                return _real(*args)
+
+            # a wrapper counts its launches under its module name, the
+            # spy's while it stands there
+            spy.launches = real.launches
+            spies.append((real, spy))
+            stack.enter_context(mock.patch.object(module, real.__name__,
+                                                  spy))
+        try:
+            yield calls
+        finally:
+            for real, spy in spies:
+                real.launches = spy.launches
+
+
+def deform_bwd_asks(calls):
+    """(Cin, needs) of every recorded deform_bwd launch."""
+    return [(key[1][1], key[4]) for key in calls if key[0] == "deform_bwd"]
+
+
+def require_checked(calls, what: str) -> None:
+    """Require every recorded launch to be one that the checks held
+    against its plain version."""
+    missing = sorted({c for c in calls if c not in CHECKED}, key=str)
+    require(not missing, f"{what} launched kernels at unchecked shapes: "
+            f"{missing}")
+    print(f"{what}: all {len(set(calls))} kernel launch shapes "
+          f"({len(calls)} launches) were held against the plain versions",
+          flush=True)
+
+
+def drive_cascade_infer(gen):
+    """The cascade's Predictor.do_batch with deform="kernel": f32 card vs
+    CPU (64x128), f32 kernel vs warpconv (Sintel pairs at the 448x1024
+    working size), then the bf16 main path with its launch counts and the
+    ms/frame of both methods. Returns (launches of one forward, ms/frame
+    of kernel and of warpconv)."""
+    params = init_params(0, model="MaskFlownet")
+    h, w = SLICE_HW
+    b = CASCADE_BATCH
+    img1 = torch.rand((b, 3, h, w), generator=gen, device="cuda")
+    img2 = torch.rand((b, 3, h, w), generator=gen, device="cuda")
+    kern_cfg, warp_cfg = ModelConfig(deform="kernel"), ModelConfig()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def predictor(device, dtype, cfg):
+        return Predictor(params, device=device, dtype=dtype, cfg=cfg,
+                         model="MaskFlownet")
+
+    small1, small2 = img1[:1, :, :64, :128], img2[:1, :, :64, :128]
+    card = predictor("cuda", torch.float32, kern_cfg).do_batch(small1, small2)
+    cpu = predictor("cpu", torch.float32, kern_cfg).do_batch(small1.cpu(),
+                                                             small2.cpu())
+    dflow = (card[0].cpu() - cpu[0]).abs().max().item()
+    docc = (card[1].cpu() - cpu[1]).abs().max().item()
+    print(f"cascade f32 card vs CPU at 64x128: max |dflow| {dflow:.3e} px, "
+          f"|docc| {docc:.3e} (tol {FLOW_TOL_PX} px; occ is flow2 / 20)",
+          flush=True)
+    require(dflow <= FLOW_TOL_PX and docc <= FLOW_TOL_PX / 20,
+            "cascade card vs CPU")
+
+    reset_counts()
+    kern = predictor("cuda", torch.float32, kern_cfg).do_batch(img1, img2)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    warp = predictor("cuda", torch.float32, warp_cfg).do_batch(img1, img2)
+    torch.cuda.synchronize()
+    require(launch_counts() == {**counts, "corr_fwd": 2 * counts["corr_fwd"]},
+            "warpconv launched a deform kernel")
+    check_outputs(kern, b, (h, w), "cascade f32 kernel")
+    check_outputs(warp, b, (h, w), "cascade f32 warpconv")
+    dflow = (kern[0] - warp[0]).abs().max().item()
+    print(f"cascade f32 kernel vs warpconv {b}x{h}x{w}: max |dflow| "
+          f"{dflow:.3e} px (tol {FLOW_TOL_PX}), |flow| max "
+          f"{kern[0].abs().max().item():.3f} px", flush=True)
+    require(dflow <= FLOW_TOL_PX, "cascade kernel vs warpconv")
+    del kern, warp, card, cpu
+
+    per_frame = {}
+    launches = None
+    for name, cfg in (("kernel", kern_cfg), ("warpconv", warp_cfg)):
+        pbf = predictor("cuda", torch.bfloat16, cfg)
+        with record_launches() as calls:
+            for _ in range(3):                         # warm-up
+                pbf.do_batch(img1, img2)
+        torch.cuda.synchronize()
+        require_checked(calls, f"cascade bf16 inference, deform {name}")
+        reset_counts()
+        out = pbf.do_batch(img1, img2)                 # counted
+        torch.cuda.synchronize()
+        got = {k: v for k, v in launch_counts().items() if v}
+        check_outputs(out, b, (h, w), f"cascade bf16 {name}")
+        if name == "kernel":
+            launches = got
+            print(f"cascade bf16 main path: one forward launched {got}",
+                  flush=True)
+            require(got == CASCADE_FWD, f"cascade forward launched {got}, "
+                    f"not {CASCADE_FWD}")
+        times = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(20):
+            t0 = time.perf_counter()
+            pbf.do_batch(img1, img2)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        per_frame[name] = statistics.median(times) / b
+        print(f"cascade bf16 do_batch {b}x{h}x{w}, deform {name}: "
+              f"{statistics.median(times):.3f} ms/batch (min "
+              f"{min(times):.3f}, max {max(times):.3f}), "
+              f"{per_frame[name]:.3f} ms/frame, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        del pbf, out
+    return launches, per_frame
+
+
+def drive_cascade_train(gen):
+    """The frozen-head cascade step (fix_head, aug-off) with
+    deform="kernel": f32 card vs CPU, f32 kernel vs warpconv, then the
+    bf16 main path (batch 4, 320x768) with its launch counts, the needs of
+    every deform_bwd, the head unchanged, ms/step, samples/s and peak
+    memory; then one f32 MaskFlownet_S step with deform="kernel" (the full
+    deform backward, dx included) against warpconv. Returns (launches in
+    the main-path run, ms/step, samples/s)."""
+    params = init_params(0, model="MaskFlownet")
+    kern_cfg = ModelConfig(deform="kernel")
+    f32 = TrainSettings(model="MaskFlownet", fix_head=True,
+                        compute_dtype="float32", model_cfg=kern_cfg)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    small = shifted_batch(gen, 1, (64, 128))
+    card_trainer = Trainer(f32, device="cuda", params=params)
+    cpu_trainer = Trainer(f32, device="cpu", params=params)
+    card = compare_on_branches(
+        "cascade frozen-head f32 card vs CPU at 64x128",
+        lambda replay: step_grads(card_trainer, small),
+        lambda replay: step_grads(cpu_trainer, [t.cpu() for t in small],
+                                  replay=replay))
+    require(not any(k.startswith(HEAD_SCOPE + "/") for k in card[1]),
+            "a frozen head parameter has a gradient")
+    del card_trainer, cpu_trainer, card
+
+    batch = shifted_batch(gen, 2, CASCADE_TRAIN_HW)
+    kern_trainer = Trainer(f32, device="cuda", params=params)
+    warp_trainer = Trainer(TrainSettings(
+        model="MaskFlownet", fix_head=True, compute_dtype="float32"),
+        device="cuda", params=params)
+    calls = []
+
+    # reads kern_trainer, batch and calls as they stand when it runs: the
+    # S step below reuses it
+    def kern_step(replay):
+        with record_launches() as recorded:
+            got = step_grads(kern_trainer, batch)
+        calls.extend(recorded)
+        return got
+
+    compare_on_branches(
+        f"cascade frozen-head f32 kernel vs warpconv, 2x"
+        f"{CASCADE_TRAIN_HW[0]}x{CASCADE_TRAIN_HW[1]}", kern_step,
+        lambda replay: step_grads(warp_trainer, batch, replay=replay),
+        keys=("leaky", "corr"))
+    asked = deform_bwd_asks(calls)
+    print(f"cascade frozen-head step: deform_bwd asked (Cin, (dx, dflow, "
+          f"dweight)) {asked}", flush=True)
+    require(len(asked) == CASCADE_STEP["deform_bwd"], "deform_bwd calls")
+    require(all(needs == ((False, False, True) if cin == 196 else
+                          (False, True, True)) for cin, needs in asked),
+            "the frozen step asks dweight only at level 6, dflow and "
+            "dweight elsewhere, dx nowhere")
+    del kern_trainer, warp_trainer
+
+    b = CASCADE_BATCH
+    batch = shifted_batch(gen, b, CASCADE_TRAIN_HW)
+    trainer = Trainer(TrainSettings(model="MaskFlownet", fix_head=True,
+                                    model_cfg=kern_cfg), device="cuda",
+                      params=params)
+    head = {k: trainer.params[k].detach().clone() for k in trainer.frozen}
+    with record_launches() as calls:
+        losses = [trainer.train_batch(*batch, lr=TRAIN_LR, sync=True)["loss"]
+                  for _ in range(3)]                # warm-up
+    torch.cuda.synchronize()
+    require_checked(calls, "cascade bf16 frozen-head step")
+    torch.cuda.reset_peak_memory_stats()
+    timed = 20
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = [trainer.train_batch(*batch, lr=TRAIN_LR)
+               for _ in range(timed)]
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) * 1e3 / timed
+    launches = {k: v for k, v in launch_counts().items() if v}
+    print(f"cascade train main path: {timed} steps launched {launches}",
+          flush=True)
+    require(launches == {k: v * timed for k, v in CASCADE_STEP.items()},
+            f"the frozen-head steps launched {launches}, not "
+            f"{timed} x {CASCADE_STEP}")
+    losses += [m["loss"].item() for m in metrics]
+    require(all(map(math.isfinite, losses)), f"non-finite loss: {losses}")
+    require(all(torch.equal(trainer.params[k], v) for k, v in head.items()),
+            "the frozen head moved")
+    print(f"cascade train bf16 {b}x{CASCADE_TRAIN_HW[0]}x"
+          f"{CASCADE_TRAIN_HW[1]}, head frozen: {ms_step:.3f} ms/step, "
+          f"{b * 1e3 / ms_step:.2f} samples/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss step 1 "
+          f"{losses[0]:.4f}, step {len(losses)} {losses[-1]:.4f}; the head's "
+          f"{len(head)} parameters bitwise unchanged", flush=True)
+    del trainer
+
+    # MaskFlownet_S with the kernels: the full deform backward
+    s_params = init_params(0)
+    batch = shifted_batch(gen, 2, TRAIN_HW)
+    kern_trainer = Trainer(TrainSettings(compute_dtype="float32",
+                                         model_cfg=kern_cfg), device="cuda",
+                           params=s_params)
+    warp_trainer = Trainer(TrainSettings(compute_dtype="float32"),
+                           device="cuda", params=s_params)
+    calls = []
+    compare_on_branches(
+        f"MaskFlownet_S f32 deform kernel vs warpconv, 2x"
+        f"{TRAIN_HW[0]}x{TRAIN_HW[1]}", kern_step,
+        lambda replay: step_grads(warp_trainer, batch, replay=replay),
+        keys=("leaky", "corr"))
+    asked = deform_bwd_asks(calls)
+    require(sorted(asked) == [(c, (True, True, True)) for c in (32, 64, 96, 128)],
+            f"the S step's deform_bwd calls {asked}")
+    return launches, ms_step, b * 1e3 / ms_step
 
 
 def main() -> int:
@@ -747,8 +1359,23 @@ def main() -> int:
         del cases
         aug_launches, aug_ms_step, aug_samples_s = drive_augment(gen)
 
+    with phase("deform"):
+        deform_err = check_deform(gen)
+        deform_rows, deform_total = time_deform(gen)
+
+    with phase("cascade"):
+        cascade_fwd_launches, cascade_per_frame = drive_cascade_infer(gen)
+        (cascade_launches, cascade_ms_step,
+         cascade_samples_s) = drive_cascade_train(gen)
+
     def entry(name, source, replaces, timing, err, launched, shapes,
               **extra):
+        if "bound_ms" in timing:
+            bound, bound_by = timing["bound_ms"], timing["bound_by"]
+        else:
+            bound = max(timing["bytes_ms"], timing["ops_ms"])
+            bound_by = ("bytes" if timing["bytes_ms"] >= timing["ops_ms"]
+                        else "operations")
         return {
             "name": name, "route": "cuda",
             "source": f"maskflownet_torch/csrc/{source}.cu",
@@ -756,14 +1383,39 @@ def main() -> int:
                                   f"{source}.py:{line}" for line in replaces),
             "launches": launched, "max_abs_err": err,
             "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-            "bound_ms": max(timing["bytes_ms"], timing["ops_ms"]),
-            "bound_by": ("bytes" if timing["bytes_ms"] >= timing["ops_ms"]
-                         else "operations"),
+            "bound_ms": bound, "bound_by": bound_by,
             "library_ms": timing.get("library_ms"), "shapes": shapes,
             "train_ms_per_step": ms_step,
             "train_samples_per_s": samples_s,
             "aug_train_ms_per_step": aug_ms_step,
-            "aug_train_samples_per_s": aug_samples_s, **extra}
+            "aug_train_samples_per_s": aug_samples_s,
+            "cascade_ms_per_frame": cascade_per_frame["kernel"],
+            "cascade_warpconv_ms_per_frame": cascade_per_frame["warpconv"],
+            "cascade_train_ms_per_step": cascade_ms_step,
+            "cascade_train_samples_per_s": cascade_samples_s, **extra}
+
+    def deform_timing(key):
+        """The sums over the train step's four levels; the bound is the sum
+        of each level's bound, named after the kind that bounds the larger
+        part of it."""
+        rows = deform_rows[:len(DEFORM_LEVELS)]
+        by = {kind: sum(r[f"{key}_bound_ms"] for r in rows
+                        if (r[f"{key}_bytes_ms"] >= r[f"{key}_ops_ms"])
+                        == (kind == "bytes")) for kind in ("bytes",
+                                                           "operations")}
+        return {"ms": deform_total[f"{key}_ms"],
+                "plain_ms": deform_total[f"plain_{key}_ms"],
+                "bound_ms": deform_total[f"{key}_bound_ms"],
+                "bound_by": max(by, key=by.get), "library_ms": None}
+
+    def per_level(key):
+        return [{"level": r["level"], "shape": list(r["shape"]),
+                 "cout": r["cout"], "ms": r[f"{key}_ms"],
+                 "bound_ms": r[f"{key}_bound_ms"],
+                 "plain_ms": r[f"plain_{key}_ms"],
+                 "warpconv_ms": r["warpconv_fwd_ms" if key == "fwd" else
+                                  "warpconv_fwd_bwd_ms"]}
+                for r in deform_rows]
 
     train_shapes = ("sum over the 5 level shapes of one bf16 train step, "
                     "batch 8 at 320x448; launches in 20 steps")
@@ -773,23 +1425,49 @@ def main() -> int:
               "sum over the 5 level shapes of one bf16 forward, batch 4 at "
               "448x1024; launches in 20 train steps",
               launches_infer_forward=infer_launches,
+              launches_cascade_forward=cascade_fwd_launches["corr_fwd"],
+              launches_cascade_train=cascade_launches["corr_fwd"],
               launches_aug_train=aug_launches["corr_fwd"],
               slice_ms_per_frame=per_frame),
         entry("corr_bwd_f1", "correlation", (104, 232),
               bwd_timing["corr_bwd_f1"], bwd_err["corr_bwd_f1"],
               launches["corr_bwd_f1"], train_shapes,
-              launches_aug_train=aug_launches["corr_bwd_f1"]),
+              launches_aug_train=aug_launches["corr_bwd_f1"],
+              launches_cascade_train=cascade_launches["corr_bwd_f1"]),
         entry("corr_bwd_f2", "correlation", (127, 253),
               bwd_timing["corr_bwd_f2"], bwd_err["corr_bwd_f2"],
               launches["corr_bwd_f2"], train_shapes,
-              launches_aug_train=aug_launches["corr_bwd_f2"]),
+              launches_aug_train=aug_launches["corr_bwd_f2"],
+              launches_cascade_train=cascade_launches["corr_bwd_f2"]),
         entry("affine_sample", "affine", (52,), affine_timing, affine_err,
               aug_launches["affine_sample"],
               "sum over the 2 launches of one augmented step, f32, batch 8: "
               "(8,6,384,512) and (8,3,384,512) sampled at 320x448; "
               "launches in 20 augmented steps; ms with the L2 flushed "
               "before each call", ms_l2_warm=affine_timing["warm_ms"],
-              host_ms_per_call=affine_timing["host_ms"])]}))
+              host_ms_per_call=affine_timing["host_ms"]),
+        entry("deform_fwd", "deform", (99,), deform_timing("fwd"),
+              deform_err["deform_fwd"][0], cascade_launches["deform_fwd"],
+              "sum over the 4 deformable convs of the MaskFlownet_S train "
+              "step, bf16, batch 8 at 320x448, ms with the L2 flushed "
+              "before each call; launches in 20 frozen-head cascade steps; "
+              "library: none (no single PyTorch call), warpconv beside it",
+              max_rel_err=deform_err["deform_fwd"][1],
+              warpconv_ms=deform_total["warpconv_fwd_ms"],
+              per_level=per_level("fwd"),
+              launches_cascade_forward=cascade_fwd_launches["deform_fwd"]),
+        entry("deform_bwd", "deform", (155,), deform_timing("bwd"),
+              deform_err["deform_bwd"][0], cascade_launches["deform_bwd"],
+              "sum over the 4 full backwards (dx, dflow, dweight) of the "
+              "MaskFlownet_S train step, bf16, batch 8 at 320x448, ms with "
+              "the L2 flushed before each call; launches in 20 frozen-head "
+              "cascade steps (dflow and dweight, level 6 dweight only); "
+              "library: none (no single PyTorch call), warpconv's "
+              "forward + backward beside the kernels' forward + backward",
+              max_rel_err=deform_err["deform_bwd"][1],
+              warpconv_fwd_bwd_ms=deform_total["warpconv_fwd_bwd_ms"],
+              fwd_bwd_ms=deform_total["fwd_ms"] + deform_total["bwd_ms"],
+              per_level=per_level("bwd"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,12 +1,15 @@
-"""MaskFlownet_S image-pair inference: the port of
-``maskflownet_tpu/training/engine.py:66-75, 210-266, 306`` (``centralize``,
-``Trainer._infer_fn``/``do_batch``, ``predict``) and
+"""Image-pair inference with MaskFlownet_S or the MaskFlownet cascade: the
+port of ``maskflownet_tpu/training/engine.py:66-75, 210-266, 306``
+(``centralize``, ``Trainer._infer_fn``/``do_batch``, ``predict``) and
 ``maskflownet_tpu/tools/infer.py:39-53``.
 
 ``Predictor.do_batch`` takes NCHW images in [0, 1]: centralise the pair,
 resize bilinearly to the next multiple of 64 (or ``resize``), run the
-network, upsample the finest flow and the occlusion mask by 4, resize them
-back with the flow values rescaled, and warp image 2 by the flow.
+network, upsample the finest flow and the model's first visual by 4,
+resize them back with the flow values rescaled, and warp image 2 by the
+flow. The visual is MaskFlownet_S's occlusion mask (a sigmoid), and for
+the cascade flow2's channel 0, which has no mask head (JAX
+``engine.py:246``, ``maskflownet.py:391``).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import numpy as np
 import torch
 
 from maskflownet_torch import get_device, nn
-from maskflownet_torch.models.maskflownet import ModelConfig, maskflownet_s
+from maskflownet_torch.models.maskflownet import ModelConfig, build_model
 from maskflownet_torch.ops.resample import resize_bilinear, upsample
 from maskflownet_torch.ops.warp import backwarp
 
@@ -28,7 +31,8 @@ def centralize(img1: torch.Tensor, img2: torch.Tensor):
 
 
 class Predictor:
-    """Holds MaskFlownet_S parameters on a device and runs inference.
+    """Holds the parameters of ``model`` (``"MaskFlownet_S"`` or
+    ``"MaskFlownet"``) on a device and runs inference.
 
     ``params``: port parameters (OIHW), e.g. from ``models.init_params``,
     ``interop.params_from_jax`` or ``interop.load_npz``. ``dtype`` is the
@@ -38,18 +42,20 @@ class Predictor:
     def __init__(self, params: dict[str, torch.Tensor],
                  device: str | torch.device = "cuda",
                  dtype: torch.dtype = torch.bfloat16,
-                 cfg: ModelConfig = ModelConfig()):
+                 cfg: ModelConfig = ModelConfig(),
+                 model: str = "MaskFlownet_S"):
         self.device = get_device(device)
         self.dtype = dtype
         self.cfg = cfg
+        self.model_fn = build_model(model)
         self.params = {k: v.to(self.device, dtype) for k, v in params.items()}
 
     @torch.no_grad()
     def do_batch(self, img1, img2, resize: tuple[int, int] | None = None):
         """img1/img2: (B,3,H,W) float in [0, 1] (tensors or arrays).
         Returns f32 tensors on the device at input resolution: flow
-        (B,2,H,W) in (dy, dx) pixels, occlusion (B,1,H,W), warped image 2
-        (B,3,H,W)."""
+        (B,2,H,W) in (dy, dx) pixels, occlusion (B,1,H,W) (the cascade:
+        flow2's channel 0), warped image 2 (B,3,H,W)."""
         img1 = torch.as_tensor(img1, dtype=torch.float32, device=self.device)
         img2 = torch.as_tensor(img2, dtype=torch.float32, device=self.device)
         h, w = img1.shape[2:]
@@ -60,9 +66,8 @@ class Predictor:
         i1, i2 = centralize(img1, img2)
         i1 = resize_bilinear(i1, wh, ww)
         i2 = resize_bilinear(i2, wh, ww)
-        preds, occs, _ = maskflownet_s(nn.apply_ctx(self.params, self.dtype),
-                                       i1, i2, self.cfg,
-                                       cascade_sources=False)
+        preds, occs, _ = self.model_fn(nn.apply_ctx(self.params, self.dtype),
+                                       i1, i2, self.cfg)
         flow = upsample(preds[-1], 4)
         occ = upsample(occs[0].float(), 4)
         if (wh, ww) != (h, w):

@@ -1,5 +1,5 @@
-"""MaskFlownet-S forward (NCHW), the port of
-``maskflownet_tpu/models/maskflownet.py:36-64, 118-323``.
+"""MaskFlownet-S and the MaskFlownet cascade (NCHW), the port of
+``maskflownet_tpu/models/maskflownet.py:36-64, 118-423``.
 
 Conventions kept from the JAX package:
   * flow inside the network is full-resolution displacement / 20
@@ -11,7 +11,12 @@ Conventions kept from the JAX package:
   * ``strict_c2s_compat`` reproduces the reference's ``c2s`` quirk
     (image-1 features at indices 1 and 2) in the cascade sources;
   * parameter names are the JAX package's (``conv1a/w``, ``pred_flow6/b``,
-    ...); shared pyramid weights are one entry used for both images.
+    ...); shared pyramid weights are one entry used for both images; the
+    cascade's head lives under ``MaskFlownet_S/`` (``HEAD_SCOPE``);
+  * ``ModelConfig.deform`` picks the deformable conv's formulation
+    (``warpconv``, the JAX package's TPU default, or ``kernel``, the CUDA
+    kernels of ``csrc/deform.cu``), the explicit counterpart of the JAX
+    package's ``MFN_DEFORM``.
 
 The TPU-only reformulations of the JAX model (space-to-depth pyramids,
 per-piece dense convs) are not part of the port: they compute the same
@@ -39,6 +44,7 @@ class ModelConfig:
     deform_bias: bool = True
     upfeat_ch: tuple[int, ...] = (16, 16, 16, 16)
     strict_c2s_compat: bool = True
+    deform: str = "warpconv"     # 'warpconv' | 'gather' | 'kernel'
 
     @property
     def scale(self) -> float:
@@ -133,7 +139,7 @@ def maskflownet_s(ctx: nn.Ctx, im1: torch.Tensor, im2: torch.Tensor,
         flow, mask = fm[:, 0:2], fm[:, 2:3]
         offsets = flow * (cfg.scale / STRIDES[idx + 1])
         warp = deform_conv(ctx, f"deform{lvl}", c2l, offsets, c2l.shape[1],
-                           use_bias=cfg.deform_bias)
+                           use_bias=cfg.deform_bias, method=cfg.deform)
         warp = warp * torch.sigmoid(mask).to(dtype) + nn.conv(
             ctx, f"conv{lvl}f", feat, c2l.shape[1], act=False)
         corr = correlation(c1l, nn.leaky_relu(warp), MD, leaky=0.1)
@@ -166,19 +172,90 @@ def maskflownet_s(ctx: nn.Ctx, im1: torch.Tensor, im2: torch.Tensor,
     return predictions, occlusion_masks, (c1s, c2s_out, flows, c30, c40)
 
 
+HEAD_SCOPE = "MaskFlownet_S"
+
+
+def maskflownet(ctx: nn.Ctx, im1: torch.Tensor, im2: torch.Tensor,
+                cfg: ModelConfig = ModelConfig()):
+    """The MaskFlownet cascade (JAX ``maskflownet``, reference
+    ``MaskFlownet.py:443-545``): the MaskFlownet_S head under the
+    ``MaskFlownet_S/`` scope, then a second stage over a second dual
+    pyramid (``x``/``y``/``z`` names) of the head's 4-channel ``c30``/
+    ``c40`` sources, refining the head's flow with two md=2 cost volumes a
+    level -- ``corru`` against the deform-warped image-2 head features,
+    ``corrv`` between the new pyramids -- and no mask heads.
+
+    Returns ``(predictions, visuals, ())``: predictions as
+    :func:`maskflownet_s`'s; ``visuals[0]`` is flow2's channel 0 (the
+    internal flow, before the x20 scale), which stands in for the
+    occlusion mask in ``do_batch``. Freezing the head is the trainer's
+    business (``TrainSettings.fix_head``), not the model's."""
+    md = 2
+    dtype = ctx.dtype
+    _, _, srcs = maskflownet_s(ctx.scope(HEAD_SCOPE), im1, im2, cfg)
+    c1s, c2s, head_flows, c30, c40 = srcs
+    c3s, c4s = _pyramid_pair(ctx, c30, c40, names=("x", "y", "z"))
+
+    def warped(lvl, c2l, flow, stride):
+        return nn.leaky_relu(deform_conv(
+            ctx, f"deform{lvl}", c2l, flow * (cfg.scale / stride),
+            c2l.shape[1], use_bias=cfg.deform_bias, method=cfg.deform))
+
+    flow = head_flows[0]
+    corru = correlation(c1s[5], warped(6, c2s[5], flow, STRIDES[0]), md,
+                        leaky=0.1)
+    corrv = correlation(c3s[5], c4s[5], md, leaky=0.1)
+    x = _dense_block(ctx, 6, torch.cat([corru, corrv, flow.to(dtype)], 1))
+    flow = flow + _pred_flow(ctx, 6, x)
+    flows = [flow]
+
+    for idx, lvl in enumerate((5, 4, 3, 2)):
+        c1l, c2l = c1s[lvl - 1], c2s[lvl - 1]
+        feat = nn.deconv(ctx, f"upfeat{lvl}", x, cfg.upfeat_ch[idx])
+        flow = upsample(flow, 2)
+        corru = correlation(c1l, warped(lvl, c2l, flow, STRIDES[idx + 1]),
+                            md, leaky=0.1)
+        corrv = correlation(c3s[lvl - 1], c4s[lvl - 1], md, leaky=0.1)
+        x = _dense_block(ctx, lvl, torch.cat(
+            [c1l, feat, corru, corrv, flow.to(dtype),
+             head_flows[idx + 1].to(dtype)], 1))
+        flow = flow + _pred_flow(ctx, lvl, x)
+        flows.append(flow)
+
+    flow = flow + _context_net(ctx, x).float()
+    flows[-1] = flow
+    return [f * cfg.scale for f in flows], [flow[:, 0:1]], ()
+
+
+# the entry points' forward of each model: ``(ctx, im1, im2, cfg) ->
+# (predictions, visuals, _)``; they read no cascade sources
+MODELS = {"MaskFlownet_S": functools.partial(maskflownet_s,
+                                             cascade_sources=False),
+          "MaskFlownet": maskflownet}
+
+
+def build_model(name: str):
+    """The entry points' forward of model ``name`` (JAX ``build_model``)."""
+    try:
+        return MODELS[name]
+    except KeyError:
+        raise NotImplementedError(f"unknown model {name!r}") from None
+
+
 @functools.cache
-def _shapes(cfg: ModelConfig):
-    return nn.collect_shapes(maskflownet_s, (1, 3, 64, 64), (1, 3, 64, 64),
-                             cfg=cfg, cascade_sources=False)
+def _shapes(model: str, cfg: ModelConfig):
+    return nn.collect_shapes(build_model(model), (1, 3, 64, 64),
+                             (1, 3, 64, 64), cfg=cfg)
 
 
-def param_shapes(cfg: ModelConfig = ModelConfig()) -> dict[str, tuple]:
-    """Name -> OIHW shape of every MaskFlownet_S parameter."""
-    return {k: v[0] for k, v in _shapes(cfg).items()}
+def param_shapes(cfg: ModelConfig = ModelConfig(),
+                 model: str = "MaskFlownet_S") -> dict[str, tuple]:
+    """Name -> OIHW shape of every parameter of ``model``."""
+    return {k: v[0] for k, v in _shapes(model, cfg).items()}
 
 
-def init_params(seed: int, cfg: ModelConfig = ModelConfig()
-                ) -> dict[str, torch.Tensor]:
-    """Seeded MSRA-PReLU weights and zero biases at the published widths
-    (f32, CPU)."""
-    return nn.init(_shapes(cfg), seed)
+def init_params(seed: int, cfg: ModelConfig = ModelConfig(),
+                model: str = "MaskFlownet_S") -> dict[str, torch.Tensor]:
+    """Seeded MSRA-PReLU weights and zero biases of ``model`` at the
+    published widths (f32, CPU)."""
+    return nn.init(_shapes(model, cfg), seed)

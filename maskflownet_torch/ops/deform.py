@@ -20,15 +20,39 @@ Two exact formulations, as in the JAX package:
 * ``gather``: the 4x4 integer window around ``floor(p + flow)`` gathered
   once (16 corners), nine bilinear taps, one contraction over 9*Cin. It
   is the plain check of ``warpconv``.
+
+A third method, ``kernel``, is the counterpart of the JAX package's
+``pallas`` (``maskflownet_tpu/ops/pallas/deform.py``, ``_fwd_kernel`` and
+``_bwd_kernel``): :class:`DeformFunction` runs the hand-written CUDA
+kernels of ``csrc/deform.cu`` on a CUDA tensor (``deform_fwd``,
+``deform_bwd``) or raises, and ``deform_fwd_plain``/``deform_bwd_plain``
+on a CPU tensor. Both take the sample coordinates ``sy = y + dy``,
+``sx = x + dx`` (N,H,W) f32 and the weight as ``w9`` (9, Cin, Cout), tap
+``ky*3 + kx`` major, in the input's dtype; the bias is the caller's.
+
+Its gradient is the floor-based one of ``gather`` and ``warpconv``: at an
+integer coordinate the flow gradient is the one-sided difference toward
+the next pixel. The Pallas backward takes the slope ``-sign(s - i)`` of
+``max(0, 1 - |s - i|)`` there, which is 0 at ``s = i``
+(``ops/pallas/deform.py:204, 221``), and so drops the whole flow gradient
+at integer flows (ROADMAP queue 3).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from maskflownet_torch import nn
+from maskflownet_torch.ops import _build
 from maskflownet_torch.ops.warp import _gather, backwarp_coords, base_grid
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_COUT = 256  # the kernels keep up to 256 output channels per block
 
 
 def _warpconv(x, flow, weight, bias):
@@ -38,37 +62,301 @@ def _warpconv(x, flow, weight, bias):
     return out if bias is None else out + bias.to(x.dtype)[:, None, None]
 
 
-def _gather_deform(x, flow, weight, bias):
+def _window(x, sy, sx):
+    """The shared 4x4 window of every pixel: ``{(u, v): (N,Cin,H,W)}`` in
+    x's dtype, the values at rows ``floor(sy) - 1 + u`` and columns
+    ``floor(sx) - 1 + v`` (u, v in 0..3), zero outside the image; and the
+    fractions ``fy``/``fx`` (N,1,H,W) f32 with the integer corner
+    ``y0``/``x0``."""
     n, cin, h, w = x.shape
-    dtype = x.dtype
-    sy, sx = base_grid(flow)
     y0 = torch.floor(sy)
     x0 = torch.floor(sx)
-    fy = (sy - y0).unsqueeze(1).to(dtype)
-    fx = (sx - x0).unsqueeze(1).to(dtype)
+    fy = (sy - y0).unsqueeze(1)
+    fx = (sx - x0).unsqueeze(1)
     y0 = y0.long()
     x0 = x0.long()
-    corners = {}
-    for u in (-1, 0, 1, 2):
-        for v in (-1, 0, 1, 2):
-            yy = y0 + u
-            xx = x0 + v
+    win = {}
+    for u in range(4):
+        for v in range(4):
+            yy = y0 + (u - 1)
+            xx = x0 + (v - 1)
             valid = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
             g = _gather(x, yy.clamp(0, h - 1), xx.clamp(0, w - 1))
-            corners[(u, v)] = torch.where(valid.unsqueeze(1), g,
-                                          g.new_zeros(()))
-    taps = [(1 - fy) * (1 - fx) * corners[(ky, kx)]
-            + (1 - fy) * fx * corners[(ky, kx + 1)]
-            + fy * (1 - fx) * corners[(ky + 1, kx)]
-            + fy * fx * corners[(ky + 1, kx + 1)]
-            for ky in (-1, 0, 1) for kx in (-1, 0, 1)]
-    stacked = torch.stack(taps, 1)                      # (N, 9, Cin, H, W)
-    wk = weight.to(dtype).reshape(weight.shape[0], cin, 9)
+            win[(u, v)] = torch.where(valid.unsqueeze(1), g, g.new_zeros(()))
+    return win, fy, fx, y0, x0
+
+
+def _taps(win, fy, fx):
+    """The nine bilinear taps (ky, kx major) as (N, 9, Cin, H, W): tap
+    (a, b) interpolates the window's corners (a..a+1, b..b+1)."""
+    taps = []
+    for a in range(3):
+        for b in range(3):
+            r0 = (1 - fx) * win[(a, b)] + fx * win[(a, b + 1)]
+            r1 = (1 - fx) * win[(a + 1, b)] + fx * win[(a + 1, b + 1)]
+            taps.append((1 - fy) * r0 + fy * r1)
+    return torch.stack(taps, 1)
+
+
+def _gather_deform(x, flow, weight, bias):
+    dtype = x.dtype
+    sy, sx = base_grid(flow)
+    win, fy, fx, _, _ = _window(x, sy, sx)
+    stacked = _taps(win, fy.to(dtype), fx.to(dtype))    # (N, 9, Cin, H, W)
+    wk = weight.to(dtype).reshape(weight.shape[0], x.shape[1], 9)
     out = torch.einsum("nkchw,ock->nohw", stacked, wk)
     return out if bias is None else out + bias.to(dtype)[:, None, None]
 
 
-_METHODS = {"warpconv": _warpconv, "gather": _gather_deform}
+def deform_fwd_plain(x: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
+                     w9: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``deform_fwd`` (same arguments): the shared
+    4x4 window, nine bilinear taps, one contraction over 9*Cin, all in
+    f32, one cast to the input dtype at the end."""
+    win, fy, fx, _, _ = _window(x.float(), sy, sx)
+    out = torch.einsum("nkchw,kco->nohw", _taps(win, fy, fx), w9.float())
+    return out.to(x.dtype)
+
+
+def deform_bwd_plain(x: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
+                     w9: torch.Tensor, g: torch.Tensor,
+                     needs=(True, True, True)):
+    """Plain PyTorch version of ``deform_bwd`` (same arguments): for the
+    cotangent ``g`` (N,Cout,H,W) of ``deform_fwd_plain``, ``(dx, dsy, dsx,
+    dw)`` in f32 -- (N,Cin,H,W), (N,H,W), (N,H,W), (9,Cin,Cout) -- with
+    None for each gradient that ``needs = (dx, dflow, dweight)`` does not
+    ask for. ``dtap = g . w9^T`` feeds dx (scattered to the window's
+    corners with the bilinear weights) and the flow (the taps'
+    derivatives in the fractions, floor-based); ``dw = taps^T . g``."""
+    need_dx, need_flow, need_w = needs
+    n, cin, h, w = x.shape
+    win, fy, fx, y0, x0 = _window(x.float(), sy, sx)
+    gf = g.float()
+    dx = dsy = dsx = dw = None
+    if need_w:
+        dw = torch.einsum("nkchw,nohw->kco", _taps(win, fy, fx), gf)
+    if not (need_dx or need_flow):
+        return dx, dsy, dsx, dw
+    dtap = torch.einsum("nohw,kco->nkchw", gf, w9.float())
+    if need_flow:
+        dfy = dfx = 0
+        for a in range(3):
+            for b in range(3):
+                d = dtap[:, a * 3 + b]
+                dfy = dfy + d * ((1 - fx) * (win[(a + 1, b)] - win[(a, b)])
+                                 + fx * (win[(a + 1, b + 1)]
+                                         - win[(a, b + 1)]))
+                dfx = dfx + d * ((1 - fy) * (win[(a, b + 1)] - win[(a, b)])
+                                 + fy * (win[(a + 1, b + 1)]
+                                         - win[(a + 1, b)]))
+        dsy, dsx = dfy.sum(1), dfx.sum(1)
+    if need_dx:
+        dx = torch.zeros((n, cin, h * w), device=x.device)
+        wy, wx = (1 - fy, fy), (1 - fx, fx)
+        for u in range(4):
+            for v in range(4):
+                s = 0
+                for a in (u - 1, u):
+                    for b in (v - 1, v):
+                        if 0 <= a <= 2 and 0 <= b <= 2:
+                            s = s + dtap[:, a * 3 + b] * (wy[u - a]
+                                                          * wx[v - b])
+                yy = y0 + (u - 1)
+                xx = x0 + (v - 1)
+                valid = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+                idx = (yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)).reshape(
+                    n, 1, -1).expand(n, cin, -1)
+                dx.scatter_add_(2, idx, torch.where(
+                    valid.unsqueeze(1), s, s.new_zeros(())).reshape(
+                        n, cin, -1))
+        dx = dx.reshape(n, cin, h, w)
+    return dx, dsy, dsx, dw
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("deform")
+    lib.mfn_deform_fwd.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.mfn_deform_fwd.restype = ctypes.c_int
+    lib.mfn_deform_bwd.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.mfn_deform_bwd.restype = ctypes.c_int
+    lib.mfn_deform_dw_splits.argtypes = [ctypes.c_int] * 6
+    lib.mfn_deform_dw_splits.restype = ctypes.c_int
+    lib.mfn_deform_error_string.argtypes = [ctypes.c_int]
+    lib.mfn_deform_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(name: str, x, sy, sx, w9, g=None) -> None:
+    """Raise unless the kernels take these inputs."""
+    ts = [t for t in (x, sy, sx, w9, g) if t is not None]
+    if x.device.type != "cuda" or any(t.device != x.device for t in ts):
+        raise ValueError(f"{name}: inputs must lie on one CUDA device, got "
+                         f"{[str(t.device) for t in ts]}")
+    if x.dtype not in _DTYPE_CODES or w9.dtype != x.dtype or (
+            g is not None and g.dtype != x.dtype) or \
+            sy.dtype != torch.float32 or sx.dtype != torch.float32:
+        raise TypeError(f"{name}: x, w9 (and g) must share f32 or bf16 and "
+                        f"sy/sx be f32, got {[t.dtype for t in ts]}")
+    if x.dim() != 4 or 0 in x.shape:
+        raise ValueError(f"{name}: x must be non-empty NCHW, got "
+                         f"{tuple(x.shape)}")
+    n, cin, h, w = x.shape
+    if tuple(sy.shape) != (n, h, w) or sx.shape != sy.shape:
+        raise ValueError(f"{name}: sy/sx must be {(n, h, w)}, got "
+                         f"{tuple(sy.shape)} and {tuple(sx.shape)}")
+    if w9.dim() != 3 or tuple(w9.shape[:2]) != (9, cin) or \
+            not 1 <= w9.shape[2] <= MAX_COUT:
+        raise ValueError(f"{name}: w9 must be (9, {cin}, Cout) with Cout in "
+                         f"1..{MAX_COUT}, got {tuple(w9.shape)}")
+    if g is not None and tuple(g.shape) != (n, w9.shape[2], h, w):
+        raise ValueError(f"{name}: g must be {(n, w9.shape[2], h, w)}, got "
+                         f"{tuple(g.shape)}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if n > 65535 or n * max(cin, w9.shape[2]) * h * w >= 2 ** 31:
+        raise ValueError(f"{name}: shape {tuple(x.shape)} too large")
+
+
+def _raise_on(name: str, err: int) -> None:
+    if err:
+        raise RuntimeError(f"{name}: launch failed: "
+                           f"{_lib().mfn_deform_error_string(err).decode()}")
+
+
+def deform_fwd(x: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
+               w9: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA forward kernel on the current stream.
+
+    x (N,Cin,H,W) and w9 (9,Cin,Cout) contiguous, both f32 or both bf16;
+    sy/sx (N,H,W) contiguous f32 sample coordinates; one CUDA device.
+    Returns (N,Cout,H,W) in x's dtype, without a gradient (use
+    :class:`DeformFunction`). Raises on any input the kernel does not
+    take, and if the launch reports an error."""
+    _check("deform_fwd", x, sy, sx, w9)
+    n, cin, h, w = x.shape
+    cout = w9.shape[2]
+    out = torch.empty((n, cout, h, w), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _lib().mfn_deform_fwd(
+            x.data_ptr(), sy.data_ptr(), sx.data_ptr(), w9.data_ptr(),
+            out.data_ptr(), n, cin, h, w, cout, _DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on("deform_fwd", err)
+    deform_fwd.launches += 1
+    return out
+
+
+deform_fwd.launches = 0
+
+
+def deform_bwd(x: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
+               w9: torch.Tensor, g: torch.Tensor,
+               needs=(True, True, True)):
+    """Launch the CUDA backward kernels on the current stream for the
+    gradients that ``needs = (dx, dflow, dweight)`` asks for; arguments and
+    results as :func:`deform_bwd_plain` (g in x's dtype). dx and dflow come
+    from one kernel, dweight from per-block partial sums and one
+    reduction; nothing is launched for a gradient that is not asked for,
+    and one call counts one launch."""
+    _check("deform_bwd", x, sy, sx, w9, g)
+    need_dx, need_flow, need_w = (bool(v) for v in needs)
+    n, cin, h, w = x.shape
+    cout = w9.shape[2]
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.zeros((n, cin, h, w), **f32) if need_dx else None
+    dsy = torch.empty((n, h, w), **f32) if need_flow else None
+    dsx = torch.empty((n, h, w), **f32) if need_flow else None
+    dw = torch.empty((9, cin, cout), **f32) if need_w else None
+    splits, partial = 0, None
+    if need_w:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits = _lib().mfn_deform_dw_splits(n, cin, h, w, cout, sms)
+        partial = torch.empty((splits, 9, cin, cout), **f32)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        err = _lib().mfn_deform_bwd(
+            x.data_ptr(), sy.data_ptr(), sx.data_ptr(), w9.data_ptr(),
+            g.data_ptr(), ptr(dx), ptr(dsy), ptr(dsx), ptr(dw), ptr(partial),
+            n, cin, h, w, cout, splits, _DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on("deform_bwd", err)
+    deform_bwd.launches += 1
+    return dx, dsy, dsx, dw
+
+
+deform_bwd.launches = 0
+
+
+def weight_to_w9(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """OIHW (Cout,Cin,3,3) -> the kernels' (9, Cin, Cout), tap major, in
+    ``dtype``, contiguous."""
+    cout, cin = weight.shape[:2]
+    return weight.to(dtype).permute(2, 3, 1, 0).reshape(9, cin, cout) \
+        .contiguous()
+
+
+class DeformFunction(torch.autograd.Function):
+    """The flow-guided deformable conv without bias, with its gradient
+    (``deform_conv3x3_pallas``'s ``custom_vjp``): ``apply(x, flow,
+    weight)`` with x (N,Cin,H,W), flow (N,2,H,W) (dy, dx), weight OIHW.
+    CUDA tensors run ``deform_fwd``/``deform_bwd``, CPU tensors the plain
+    pair. The backward asks only for the gradients in
+    ``ctx.needs_input_grad`` and launches nothing when none is needed;
+    gradients come back in their inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, x, flow, weight):
+        sy, sx = base_grid(flow)
+        x = x.contiguous()
+        w9 = weight_to_w9(weight, x.dtype)
+        if x.device.type == "cuda":
+            out = deform_fwd(x, sy, sx, w9)
+        else:
+            out = deform_fwd_plain(x, sy, sx, w9)
+        ctx.save_for_backward(x, sy, sx, w9)
+        ctx.dtypes = (flow.dtype, weight.dtype)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        needs = tuple(ctx.needs_input_grad[:3])
+        if not any(needs):
+            return None, None, None
+        x, sy, sx, w9 = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        bwd = deform_bwd if x.device.type == "cuda" else deform_bwd_plain
+        dx, dsy, dsx, dw = bwd(x, sy, sx, w9, g, needs)
+        flow_dtype, weight_dtype = ctx.dtypes
+        if dx is not None:
+            dx = dx.to(x.dtype)
+        dflow = None if dsy is None else torch.stack([dsy, dsx], 1).to(
+            flow_dtype)
+        if dw is not None:
+            dw = dw.permute(2, 1, 0).reshape(
+                w9.shape[2], w9.shape[1], 3, 3).to(weight_dtype)
+        return dx, dflow, dw
+
+
+def _kernel_deform(x, flow, weight, bias):
+    if x.device.type in ("cuda", "cpu"):
+        out = DeformFunction.apply(x, flow, weight)
+    elif x.device.type == "meta":   # the parameter-shape pass
+        out = x.new_empty((x.shape[0], weight.shape[0]) + x.shape[2:])
+    else:
+        raise ValueError(f"deform: no path for device {x.device}")
+    return out if bias is None else out + bias.to(out.dtype)[:, None, None]
+
+
+_METHODS = {"warpconv": _warpconv, "gather": _gather_deform,
+            "kernel": _kernel_deform}
 
 
 def flow_guided_deform_conv3x3(x: torch.Tensor, flow: torch.Tensor,
@@ -86,8 +374,9 @@ def flow_guided_deform_conv3x3(x: torch.Tensor, flow: torch.Tensor,
 
 
 def deform_conv(ctx: nn.Ctx, name: str, x: torch.Tensor, flow: torch.Tensor,
-                cout: int, *, use_bias: bool = True) -> torch.Tensor:
+                cout: int, *, use_bias: bool = True,
+                method: str = "warpconv") -> torch.Tensor:
     """Parameterized wrapper (kernel 3, stride 1, pad 1, one group)."""
     wgt = ctx.param(f"{name}/w", (cout, x.shape[1], 3, 3), nn.msra_prelu())
     b = ctx.param(f"{name}/b", (cout,), nn.zeros_init) if use_bias else None
-    return flow_guided_deform_conv3x3(x, flow, wgt, b)
+    return flow_guided_deform_conv3x3(x, flow, wgt, b, method)

@@ -1,27 +1,32 @@
-"""Where the time of MaskFlownet_S inference, or of its train step, goes on
-the card.
+"""Where the time of inference, or of a train step, goes on the card.
 
     python -m maskflownet_torch.tools.profile_infer [--path infer|train]
-        [--aug] [--out PATH]
+        [--aug] [--model MaskFlownet_S|MaskFlownet]
+        [--deform warpconv|kernel] [--out PATH]
 
 Seeded weights at the published widths drive, in bf16, either
 ``Predictor.do_batch`` on 4 Sintel-sized pairs (436x1024; ``--path
-infer``, the default) or ``Trainer.train_batch`` on a synthetic
-FlyingChairs batch of 8 at 320x448 (``--path train``), the slices of
-``chip_smoke.py``. With ``--aug`` the train step augments as the
-FlyingChairs stage does (the chairs presets' colour and geometry, from
-384x512 sources to 320x448 crops). For cuDNN autotuning off and on, in
+infer``, the default) or ``Trainer.train_batch`` on a synthetic batch
+(``--path train``): for MaskFlownet_S (the default) the FlyingChairs
+batch of 8 at 320x448, for the MaskFlownet cascade the frozen-head step
+(``fix_head``) on a batch of 4 at 320x768 -- the paths of
+``chip_smoke.py``. ``--deform`` picks the deformable conv's formulation
+(``warpconv``, the default, or ``kernel``, the CUDA kernels of
+``csrc/deform.cu``). With ``--aug`` the MaskFlownet_S step augments as
+the FlyingChairs stage does (the chairs presets' colour and geometry,
+from 384x512 sources to 320x448 crops). For cuDNN autotuning off and on, in
 turns (off, on, on, off): host time per batch ended by
 ``torch.cuda.synchronize()`` (median, min, max of 20), then one
 ``torch.profiler`` window of 5 batches giving the device time by kernel
 name and category and the device's idle share of the window. Prints a
 summary and writes the full table as JSON to ``--out`` (default
-``build/profile_<path>[_aug].json``).
+``build/profile_<path>[_aug][_cascade][_kernel].json``).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -34,13 +39,17 @@ from torch.profiler import ProfilerActivity, profile
 from maskflownet_torch.config import (ORIG_SHAPE, color_aug_config,
                                       geometry_aug_config)
 from maskflownet_torch.inference import Predictor
-from maskflownet_torch.models import init_params
+from maskflownet_torch.models import ModelConfig, init_params
 from maskflownet_torch.training import TrainSettings, Trainer
 
-# path -> (batch, height, width)
-SHAPES = {"infer": (4, 436, 1024), "train": (8, 320, 448)}
+# (model, path) -> (batch, height, width)
+SHAPES = {("MaskFlownet_S", "infer"): (4, 436, 1024),
+          ("MaskFlownet_S", "train"): (8, 320, 448),
+          ("MaskFlownet", "infer"): (4, 436, 1024),
+          ("MaskFlownet", "train"): (4, 320, 768)}
 # kernel-name fragments -> category, first match wins
 CATEGORIES = (("affine_sample_kernel", "augmentation sampler (hand kernel)"),
+              ("deform_", "deformable conv (hand kernels)"),
               ("corr_fwd_kernel", "correlation (hand kernel)"),
               ("corr_bwd_f", "correlation gradients (hand kernels)"),
               ("multi_tensor", "optimizer (Adam)"),
@@ -125,15 +134,21 @@ def _profile(step, steps):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=sorted(SHAPES), default="infer")
+    ap.add_argument("--path", choices=("infer", "train"), default="infer")
     ap.add_argument("--aug", action="store_true",
                     help="train with the chairs colour and geometry "
                          "augmentation, from 384x512 sources")
+    ap.add_argument("--model", choices=("MaskFlownet_S", "MaskFlownet"),
+                    default="MaskFlownet_S")
+    ap.add_argument("--deform", choices=("warpconv", "kernel"),
+                    default="warpconv")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
-    if args.aug and args.path != "train":
-        ap.error("--aug needs --path train")
-    batch, height, width = SHAPES[args.path]
+    if args.aug and (args.path != "train" or args.model != "MaskFlownet_S"):
+        ap.error("--aug needs --path train and --model MaskFlownet_S")
+    batch, height, width = SHAPES[(args.model, args.path)]
+    cfg = ModelConfig(deform=args.deform)
+    params = init_params(0, cfg, args.model)
     src_hw = ORIG_SHAPE["chairs"] if args.aug else (height, width)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -145,24 +160,27 @@ def main(argv=None) -> int:
     img1 = torch.rand(shape, generator=gen, device="cuda")
     img2 = torch.rand(shape, generator=gen, device="cuda")
     if args.path == "infer":
-        pred = Predictor(init_params(0), device="cuda", dtype=torch.bfloat16)
+        pred = Predictor(params, device="cuda", dtype=torch.bfloat16,
+                         cfg=cfg, model=args.model)
 
         def step():
             pred.do_batch(img1, img2)
     else:
-        settings = TrainSettings()
+        settings = TrainSettings(model=args.model, model_cfg=cfg,
+                                 fix_head=args.model == "MaskFlownet")
         if args.aug:
-            settings = TrainSettings(
-                color=color_aug_config("chairs"),
+            settings = dataclasses.replace(
+                settings, color=color_aug_config("chairs"),
                 geo=geometry_aug_config("chairs", (height, width), src_hw))
-        trainer = Trainer(settings, device="cuda", params=init_params(0))
+        trainer = Trainer(settings, device="cuda", params=params)
         flow = torch.randn((batch, 2) + src_hw, generator=gen,
                            device="cuda")
 
         def step():
             trainer.train_batch(255 * img1, 255 * img2, flow)
 
-    report = dict(card=smi, path=args.path, aug=args.aug, batch=batch,
+    report = dict(card=smi, path=args.path, aug=args.aug, model=args.model,
+                  deform=args.deform, batch=batch,
                   hw=[height, width], source_hw=list(src_hw), dtype="bf16",
                   runs=[])
     for bench in (False, True, True, False):
@@ -183,8 +201,10 @@ def main(argv=None) -> int:
             print(f"    {cat:28s} {us / 1e3:8.3f} ms/batch")
         for name, us in prof["top_kernels_us_per_step"][:12]:
             print(f"    {us / 1e3:8.3f} ms  {name[:110]}")
-    out = Path(args.out or f"build/profile_{args.path}"
-                           f"{'_aug' if args.aug else ''}.json")
+    out = Path(args.out or (
+        f"build/profile_{args.path}{'_aug' if args.aug else ''}"
+        f"{'_cascade' if args.model == 'MaskFlownet' else ''}"
+        f"{'_kernel' if args.deform == 'kernel' else ''}.json"))
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
     print(f"wrote {out}")

@@ -8,20 +8,26 @@ augmentation in f32 from the geometry config's ``orig_shape`` sources to
 its ``target_shape`` crops (images returned in the compute dtype, labels
 in f32), otherwise a cast to the compute dtype; the mask (/ 255)
 broadcast to the labels' resolution; with ``color``, the colour
-augmentation in the compute dtype; ``centralize``; the MaskFlownet_S
-forward, the mean multiscale EPE and
-the ``epe`` metric of the 4x upsampled finest flow, backward (the cost
-volume's gradient runs the hand-written kernels on the card), then Adam
-(b1 0.9, b2 0.999, eps 1e-8, bias-corrected as ``optax.scale_by_adam``)
-applied as ``-lr * update`` with the lr given per call. The parameters
-are held in f32 (the master weights) and cast to the compute dtype inside
-the forward, so their gradients come back in f32.
+augmentation in the compute dtype; ``centralize``; the forward of
+``settings.model`` (MaskFlownet_S or the MaskFlownet cascade), the mean
+multiscale EPE and the ``epe`` metric of the 4x upsampled finest flow,
+backward (the cost volume's gradient runs the hand-written kernels on the
+card, and so does the deformable conv's with ``model_cfg.deform =
+"kernel"``), then Adam (b1 0.9, b2 0.999, eps 1e-8, bias-corrected as
+``optax.scale_by_adam``) applied as ``-lr * update`` with the lr given per
+call. The parameters are held in f32 (the master weights) and cast to the
+compute dtype inside the forward, so their gradients come back in f32.
+
+With ``fix_head`` the parameters under ``MaskFlownet_S/`` (the cascade's
+head) are frozen as the JAX step freezes them (``engine.py:147-153``):
+their gradients are zero, and Adam still steps them, so its count
+advances with every parameter's and the head's moments stay zero. The
+forward reads the head's parameters detached, so the backward computes
+no gradient for them, and the step hands Adam zeros in their place.
 
 The augmentations draw from one ``torch.Generator`` that the ``Trainer``
 owns on its device, seeded from ``seed``: geometry first, then colour,
-without waiting for the device. This slice trains MaskFlownet_S without a
-frozen head; settings that ask for the cascade or ``fix_head`` raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+without waiting for the device.
 """
 
 from __future__ import annotations
@@ -38,8 +44,9 @@ from maskflownet_torch.augment import (ColorAugConfig, GeometryAugConfig,
 from maskflownet_torch.inference import Predictor, centralize
 from maskflownet_torch.losses import (epe_loss_with_mask, kitti_outlier_rate,
                                       multiscale_epe)
-from maskflownet_torch.models.maskflownet import (ModelConfig, init_params,
-                                                  maskflownet_s, param_shapes)
+from maskflownet_torch.models.maskflownet import (HEAD_SCOPE, ModelConfig,
+                                                  build_model, init_params,
+                                                  param_shapes)
 from maskflownet_torch.ops.resample import upsample
 
 
@@ -65,18 +72,6 @@ class TrainSettings:
                 else torch.float32)
 
 
-def _refuse_unported(s: TrainSettings) -> None:
-    unported = [
-        (s.model != "MaskFlownet_S",
-         f"model {s.model!r}: the cascade is ROADMAP queue 1 item 1"),
-        (s.fix_head, "fix_head: ROADMAP queue 1 item 1 (the cascade)"),
-    ]
-    for asked, what in unported:
-        if asked:
-            raise NotImplementedError(
-                f"maskflownet_torch.training: not ported yet: {what}")
-
-
 def _to_device(draws, dev):
     return None if draws is None else {
         k: None if v is None else v.to(dev) for k, v in draws.items()}
@@ -93,19 +88,22 @@ class Trainer:
     def __init__(self, settings: TrainSettings = TrainSettings(),
                  device: str | torch.device = "cuda", seed: int = 0,
                  params: dict[str, torch.Tensor] | None = None):
-        _refuse_unported(settings)
         self.settings = settings
+        self.model_fn = build_model(settings.model)
         self.device = get_device(device)
-        self.shapes = param_shapes(settings.model_cfg)
+        self.shapes = param_shapes(settings.model_cfg, settings.model)
         if params is None:
-            params = init_params(seed, settings.model_cfg)
+            params = init_params(seed, settings.model_cfg, settings.model)
         missing = sorted(set(self.shapes) - set(params))
         unknown = sorted(set(params) - set(self.shapes))
         if missing or unknown:
-            raise ValueError(f"params do not match MaskFlownet_S: missing "
+            raise ValueError(f"params do not match {settings.model}: missing "
                              f"{missing[:5]}, unknown {unknown[:5]}")
         self.params = {k: params[k].detach().to(self.device, torch.float32)
                        .clone().requires_grad_() for k in sorted(params)}
+        #: the frozen parameters: the cascade's head under ``fix_head``
+        self.frozen = frozenset(k for k in self.params if settings.fix_head
+                                and k.startswith(HEAD_SCOPE + "/"))
         self.opt = torch.optim.Adam(list(self.params.values()), lr=1e-4,
                                     betas=(0.9, 0.999), eps=settings.adam_eps)
         self.steps = 0
@@ -171,9 +169,10 @@ class Trainer:
         :meth:`prepare`; the model's H and W are multiples of 64."""
         s = self.settings
         img1, img2, flow, mask = self.prepare(img1, img2, flow, mask, draws)
-        preds, _, _ = maskflownet_s(nn.apply_ctx(self.params, s.dtype()),
-                                    img1, img2, s.model_cfg,
-                                    cascade_sources=False)
+        params = {k: v.detach() if k in self.frozen else v
+                  for k, v in self.params.items()}
+        preds, _, _ = self.model_fn(nn.apply_ctx(params, s.dtype()), img1,
+                                    img2, s.model_cfg)
         loss = multiscale_epe(flow, mask, preds, weights=s.loss_weights,
                               match=s.loss_match, q=s.q).mean()
         with torch.no_grad():
@@ -182,8 +181,10 @@ class Trainer:
         return loss, epe
 
     def apply_gradients(self, lr: float) -> None:
-        """One Adam step with the gradients held in ``.grad``, then clear
-        them."""
+        """One Adam step with the gradients held in ``.grad`` (zeros for
+        the frozen parameters), then clear them."""
+        for k in self.frozen:
+            self.params[k].grad = torch.zeros_like(self.params[k])
         for group in self.opt.param_groups:
             group["lr"] = float(lr)
         self.opt.step()
@@ -221,7 +222,8 @@ class Trainer:
                      for i in range(n)]
         predictor = Predictor({k: v.detach() for k, v in self.params.items()},
                               device=self.device, dtype=self.settings.dtype(),
-                              cfg=self.settings.model_cfg)
+                              cfg=self.settings.model_cfg,
+                              model=self.settings.model)
         per_sample: dict[str, list] = {"epe": [], "kitti": []}
         wanted = ("epe", "kitti") if return_type == "both" else (return_type,)
         for j in range(0, n, batch_size):
@@ -289,3 +291,28 @@ class Trainer:
                     "exp_avg": ck["mu"][k].to(self.device),
                     "exp_avg_sq": ck["nu"][k].to(self.device)}
             self.steps = ck["step"]
+
+    def load_head(self, path: str) -> None:
+        """Load a standalone MaskFlownet_S checkpoint (its ``p:`` entries)
+        into the cascade's head, as the JAX ``load_head``
+        (``engine.py:393-408``): an entry the head does not have, a head
+        parameter the file does not cover, and a mis-shaped entry raise."""
+        with np.load(path) as z:
+            flat = {f"{HEAD_SCOPE}/{k[2:]}": z[k] for k in z.files
+                    if k.startswith("p:")}
+        unknown = sorted(set(flat) - set(self.params))
+        if unknown:
+            raise ValueError(f"head params not in model: {unknown[:5]}")
+        missing = sorted(k for k in self.params
+                         if k.startswith(HEAD_SCOPE + "/") and k not in flat)
+        if missing:
+            raise ValueError(f"checkpoint does not cover the head: missing "
+                             f"{missing[:5]}")
+        head = interop.params_from_jax(flat)
+        for k, v in head.items():
+            if tuple(v.shape) != tuple(self.shapes[k]):
+                raise ValueError(f"head param {k!r} shape {tuple(v.shape)} "
+                                 f"(OIHW) != model shape {self.shapes[k]}")
+        with torch.no_grad():
+            for k, v in head.items():
+                self.params[k].copy_(v)

@@ -40,7 +40,10 @@ def test_importing_the_port_loads_no_banned_module():
             "maskflownet_torch.interop, maskflownet_torch.losses, "
             "maskflownet_torch.training, maskflownet_torch.augment, "
             "maskflownet_torch.config.presets, "
-            "maskflownet_torch.ops.affine\n"
+            "maskflownet_torch.ops.affine, maskflownet_torch.ops.deform, "
+            "maskflownet_torch.models.maskflownet, "
+            "maskflownet_torch.tools.profile_infer, "
+            "maskflownet_torch.tools.grad_parity\n"
             f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -61,15 +64,3 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer()
     assert get_device("cpu") == torch.device("cpu")
-
-
-@pytest.mark.parametrize("change,item", [
-    (dict(model="MaskFlownet"), r"item 1\b"),
-    (dict(fix_head=True), r"item 1\b")])
-def test_trainer_refuses_what_is_not_ported(change, item):
-    """The cascade and its frozen head are a later slice: asking for them
-    raises and names the ROADMAP item, rather than training without
-    them."""
-    from maskflownet_torch.training import TrainSettings, Trainer
-    with pytest.raises(NotImplementedError, match=item):
-        Trainer(TrainSettings(**change), device="cpu")
