@@ -15,19 +15,36 @@ Phases, each timed on its own line:
      the cascade's (md=2); each plus odd shapes, f32 and bf16, LeakyReLU
      on and off; then each level's bf16 kernel time (CUDA events, warm,
      median) beside its bound and the plain version's time;
-  4. slice: ``Predictor.do_batch`` on 4 Sintel-sized pairs (436x1024) with
+  4. deform: ``deform_fwd`` and ``deform_bwd`` (each set of gradients the
+     paths ask for: dweight; dflow and dweight; all three) against the
+     plain pair ``deform_fwd_plain``/``deform_bwd_plain`` at the four
+     deformable convs of the MaskFlownet_S train step (batch 8, 320x448),
+     the inference levels (batch 4, 448x1024; deform6 the widest, 196
+     channels at 7x16) and the cascade train step's five (batch 4,
+     320x768), an odd shape whose windows lie wholly outside the image
+     (flow +-50) or sit at integer flows or whose w9 is compact, and the
+     tiling's edges (a partial last K chunk in a K split, Cout past a
+     column tile and off w9's 8-element pitch), f32 and bf16; the deform
+     kernels' registers, spills and shared memory from ``nvcc -Xptxas
+     -v``; then each level's bf16 time with the L2 flushed before each
+     call (the backward whole and its data and weight kernels alone),
+     beside its bound, achieved TFLOP/s, block counts, the plain pair's
+     and ``warpconv``'s (forward, and forward + backward), and kernels
+     against ``warpconv`` at every deformable conv of both models;
+  5. slice: ``Predictor.do_batch`` on 4 Sintel-sized pairs (436x1024) with
      seeded weights at the published widths: f32 with the kernel against
      f32 with the plain correlation, the card against the CPU on a small
-     pair, then the main path in bf16 with the kernel launch count, and
-     its time per frame;
-  5. train: ``Trainer.train_batch`` on a synthetic FlyingChairs-sized batch
+     pair, then the main path in bf16 with its launch counts (5
+     ``corr_fwd``, 4 ``deform_fwd``: ``ModelConfig.deform``'s ``"auto"``
+     takes the deform kernels on the card), and its time per frame;
+  6. train: ``Trainer.train_batch`` on a synthetic FlyingChairs-sized batch
      (image 2 is image 1 shifted by a known flow) with the same weights:
      an f32 step on the card against the same step on the CPU, an f32
      step with the kernels against one with the plain correlation (batch
      2, 320x448), then the main path -- bf16, batch 8, 320x448 -- with
      the launch count of each kernel, ms/step, samples/s, peak memory, and
      a loss after 30 steps below the first;
-  6. augment: ``affine_sample`` (the sampler of geometric augmentation)
+  7. augment: ``affine_sample`` (the sampler of geometric augmentation)
      against ``affine_sample_plain`` at both of the FlyingChairs step's
      launches (batch 8, 384x512 sources sampled at 320x448, coordinates
      from ``draw_geometry`` with the chairs presets) and at an odd shape
@@ -41,17 +58,6 @@ Phases, each timed on its own line:
      384x512 -> 320x448 -- with the launch count of every kernel, ms/step,
      samples/s, peak memory and a finite loss, after checking that the
      step draws and augments without waiting for the card;
-  7. deform: ``deform_fwd`` and ``deform_bwd`` (each set of gradients the
-     paths ask for: dweight; dflow and dweight; all three) against the
-     plain pair ``deform_fwd_plain``/``deform_bwd_plain`` at the four
-     deformable convs of the MaskFlownet_S train step (batch 8, 320x448),
-     the cascade inference's five (batch 4, 448x1024; deform6 the widest,
-     196 channels at 7x16) and its train step's five (batch 4, 320x768),
-     and an odd shape whose windows lie wholly outside the image (flow
-     +-50) or sit at integer flows, f32 and bf16; then each level's bf16
-     time with
-     the L2 flushed before each call, beside its bound, the plain pair's
-     and ``warpconv``'s (forward, and forward + backward);
   8. cascade: the MaskFlownet cascade with ``deform="kernel"``.
      ``Predictor.do_batch``: f32 card vs CPU (64x128), f32 kernel vs
      ``warpconv`` on 4 Sintel-sized pairs (448x1024 working size), then
@@ -64,6 +70,9 @@ Phases, each timed on its own line:
      level 6), the head bitwise unchanged, a finite loss, ms/step,
      samples/s and peak memory. Then one f32 MaskFlownet_S step with
      ``deform="kernel"`` (the full deform backward) against ``warpconv``.
+The card-vs-CPU comparisons run the deform kernels' form on both sides
+(``deform="kernel"``: its plain pair on the CPU), so that both take the
+same sample coordinates.
 Two f32 steps held against each other (card vs CPU, the kernels vs
 ``warpconv``) are compared as they run, and again with the second taking
 the first's side of every kink (LeakyReLU inputs, fused cost-volume
@@ -73,7 +82,7 @@ difference of the slopes. Without a flipped branch both readings are held
 to the tolerance, with one only the second.
 The warm-up of every bf16 main path records each correlation and deform
 launch by kernel, shape, dtype (and the gradients a deform backward asks
-for) and requires each to be one that phase 3 or 7 held against the plain
+for) and requires each to be one that phase 3 or 4 held against the plain
 version. Then one JSON line describing the kernels, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line; so does a machine without CUDA.
@@ -169,6 +178,10 @@ BWD = [("corr_bwd_f1", corr_bwd_f1, correlation_bwd_f1_plain, 1),
 DEFORM_LEVELS = [(5, (8, 128, 10, 14), 128), (4, (8, 96, 20, 28), 96),
                  (3, (8, 64, 40, 56), 64), (2, (8, 32, 80, 112), 32)]
 DEFORM_L6 = (6, (4, 196, 7, 16), 196)
+# ((N, Cin, H, W), Cout) at the edges of the kernels' tiling: a K split
+# whose last chunk is partial, Cout past one column tile and not a multiple
+# of 8, 189 and 132 pixels
+DEFORM_EDGES = [((3, 20, 7, 9), 40), ((2, 24, 6, 11), 150)]
 # the gradient subsets the paths ask for (dx, dflow, dweight): the frozen
 # cascade's level 6, its levels 5-2, and the S step
 DEFORM_NEEDS = [(False, False, True), (False, True, True), (True, True, True)]
@@ -186,6 +199,15 @@ CASCADE_BATCH, CASCADE_TRAIN_HW = 4, (320, 768)
 # head feature, corrv's two pyramids are stage 2's; every deform's x is a
 # head feature, deform6's flow is the head's
 CASCADE_FWD = {"corr_fwd": 15, "deform_fwd": 9}
+# kernel launches of one MaskFlownet_S forward and step, its 4 deformable
+# convs on the kernels (ModelConfig's "auto" on the card)
+S_FWD = {"corr_fwd": 5, "deform_fwd": 4}
+S_STEP = {"corr_fwd": 5, "corr_bwd_f1": 5, "corr_bwd_f2": 5,
+          "deform_fwd": 4, "deform_bwd": 4}
+# the deformable conv's two forms, forced: card-vs-CPU comparisons run the
+# kernels' form on both (the CPU its plain pair), A/B runs warpconv
+KERNEL_CFG, WARP_CFG = ModelConfig(deform="kernel"), ModelConfig(
+    deform="warpconv")
 CASCADE_STEP = {"corr_fwd": 15, "corr_bwd_f1": 5, "corr_bwd_f2": 10,
                 "deform_fwd": 9, "deform_bwd": 5}
 KERNELS = (corr_fwd, corr_bwd_f1, corr_bwd_f2, deform_fwd, deform_bwd,
@@ -411,22 +433,29 @@ def rel_err(got, want) -> float:
 
 
 def deform_cases(gen):
-    """(name, shape, cout, flow or None) of every kernel check: the S train
-    step's levels, the cascade inference's (level 6 first), the cascade
-    step's, an odd shape with its windows pushed fully outside (flow
-    +-50), and the same at integer flows."""
+    """(name, shape, cout, flow or None, padded) of every kernel check: the
+    S train step's levels, the cascade inference's (level 6 first), the
+    cascade step's, an odd shape with its windows pushed fully outside
+    (flow +-50), the same at integer flows, and the tiling's edges: Cin not
+    a multiple of the 16-channel K chunk with a K split (20, 24), Cout not a
+    multiple of the column tile or of w9's 8-element row pitch (40, 150),
+    pixel counts not a multiple of any pixel tile. ``padded`` False hands
+    the kernels a compact w9 (Cout 7), which the wrapper pads."""
     n, cin, h, w = 2, 5, 9, 13
     ints = torch.randint(-3, 4, (n, 2, h, w), generator=gen, device="cuda")
-    cases = [(f"L{lvl}", shape, cout, None)
+    cases = [(f"L{lvl}", shape, cout, None, True)
              for lvl, shape, cout in DEFORM_LEVELS + [DEFORM_L6]]
-    cases += [(f"cascade inference L{lvl}", shape, shape[1], None)
+    cases += [(f"cascade inference L{lvl}", shape, shape[1], None, True)
               for lvl, shape in LEVELS if lvl != DEFORM_L6[0]]
-    cases += [(f"cascade step L{lvl}", shape, shape[1], None)
+    cases += [(f"cascade step L{lvl}", shape, shape[1], None, True)
               for lvl, shape in CASCADE_TRAIN_LEVELS]
     for mag in (50.0, -50.0):
         cases.append((f"odd flow {mag:+g}", (n, cin, h, w), 7,
-                      torch.full((n, 2, h, w), mag, device="cuda")))
-    cases.append(("odd integer flow", (n, cin, h, w), 7, ints.float()))
+                      torch.full((n, 2, h, w), mag, device="cuda"), True))
+    cases.append(("odd integer flow", (n, cin, h, w), 7, ints.float(), True))
+    cases.append(("odd, compact w9", (n, cin, h, w), 7, None, False))
+    cases += [("edge", shape, cout, None, True)
+              for shape, cout in DEFORM_EDGES]
     return cases
 
 
@@ -436,10 +465,14 @@ def check_deform(gen):
     error as (absolute, relative to max |plain|)."""
     worst = {(k, dt): 0.0 for k in ("deform_fwd", "deform_bwd") for dt in TOL}
     worst_abs = dict(worst)
-    for name, shape, cout, flow in deform_cases(gen):
+    for name, shape, cout, flow, padded in deform_cases(gen):
         for dtype in (torch.float32, torch.bfloat16):
             x, _, _, sy, sx, w9, g = deform_inputs(gen, shape, cout, dtype,
                                                    flow)
+            if not padded:
+                w9 = w9.contiguous()
+                require(deform_module.w9_pitch(w9) is None,
+                        "a compact w9 at Cout 7 is not in the kernels' pitch")
             got = deform_fwd(x, sy, sx, w9)
             torch.cuda.synchronize()
             want = deform_fwd_plain(x, sy, sx, w9)
@@ -511,12 +544,24 @@ def deform_bound_ms(shape, cout, dtype, backward: bool):
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_FLOPS[dtype] * 1e3
 
 
+def deform_tflops(shape, cout, ms: float, backward: bool) -> float:
+    """Achieved TFLOP/s of one call: 2*N*H*W*9*Cin*Cout flops (twice that
+    backward: dtap and dweight) over ``ms``."""
+    n, cin, h, w = shape
+    return 2 * n * h * w * 9 * cin * cout * (2 if backward else 1) / (
+        ms * 1e-3) / 1e12
+
+
 def time_deform(gen):
-    """Per level, bf16: the kernels, the plain pair and warpconv (forward,
-    and forward + full backward), each a single call after an L2 flush,
-    beside the bounds. Returns per-level rows and the sums over the train
-    step's four levels."""
+    """Per level, bf16: the kernels (forward; full backward, and its data
+    kernel (dx, dflow) and weight kernel (dweight) alone), the plain pair
+    and warpconv (forward, and forward + full backward), each a single call
+    after an L2 flush, beside the bounds, the achieved TFLOP/s and each
+    kernel's block count (``deform_plan``); and the wrappers' host time a
+    call. Returns per-level rows and the sums over the train step's four
+    levels."""
     rows = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for lvl, shape, cout in DEFORM_LEVELS + [DEFORM_L6]:
         x, flow, weight, sy, sx, w9, g = deform_inputs(gen, shape, cout,
                                                        torch.bfloat16)
@@ -531,7 +576,11 @@ def time_deform(gen):
         def wc_fwd_bwd():
             torch.autograd.grad(_warpconv(xg, fg, wg, None), (xg, fg, wg), g)
 
-        r = dict(level=lvl, shape=shape, cout=cout)
+        plan = deform_module.deform_plan(*shape, cout, sms)
+        r = dict(level=lvl, shape=shape, cout=cout,
+                 blocks={"fwd": plan.fwd_blocks, "data": plan.data_blocks,
+                         "weight": plan.dw_blocks},
+                 splits={"fwd": plan.fwd_splits, "weight": plan.dw_splits})
         for key, fn in (("fwd", lambda: deform_fwd(x, sy, sx, w9)),
                         ("bwd", lambda: deform_bwd(x, sy, sx, w9, g))):
             fn()
@@ -543,6 +592,10 @@ def time_deform(gen):
             torch.cuda.synchronize()
         r["fwd_ms"] = cuda_ms_cold(lambda: deform_fwd(x, sy, sx, w9))
         r["bwd_ms"] = cuda_ms_cold(lambda: deform_bwd(x, sy, sx, w9, g))
+        r["bwd_data_ms"] = cuda_ms_cold(
+            lambda: deform_bwd(x, sy, sx, w9, g, (True, True, False)))
+        r["bwd_weight_ms"] = cuda_ms_cold(
+            lambda: deform_bwd(x, sy, sx, w9, g, (False, False, True)))
         r["plain_fwd_ms"] = cuda_ms_cold(
             lambda: deform_fwd_plain(x, sy, sx, w9), reps=11)
         r["plain_bwd_ms"] = cuda_ms_cold(
@@ -553,17 +606,25 @@ def time_deform(gen):
             b, o = deform_bound_ms(shape, cout, torch.bfloat16, bwd)
             r[f"{key}_bytes_ms"], r[f"{key}_ops_ms"] = b, o
             r[f"{key}_bound_ms"] = max(b, o)
+            r[f"{key}_tflops"] = deform_tflops(shape, cout, r[f"{key}_ms"],
+                                               bwd)
         print(f"deform level {lvl} {shape} -> {cout} bf16, L2 flushed before "
               f"each call: fwd kernel {r['fwd_ms']:.5f} ms (bound "
               f"{r['fwd_bound_ms']:.5f}, "
               f"{'bytes' if r['fwd_bytes_ms'] >= r['fwd_ops_ms'] else 'operations'}"
-              f"; kernel/bound {r['fwd_ms'] / r['fwd_bound_ms']:.1f}), plain "
+              f"; kernel/bound {r['fwd_ms'] / r['fwd_bound_ms']:.1f}; "
+              f"{r['fwd_tflops']:.2f} TFLOP/s; {plan.fwd_blocks} blocks, "
+              f"{plan.fwd_splits} K splits), plain "
               f"{r['plain_fwd_ms']:.5f}, warpconv {r['warpconv_fwd_ms']:.5f}; "
               f"full bwd kernel {r['bwd_ms']:.5f} ms (bound "
               f"{r['bwd_bound_ms']:.5f}, "
               f"{'bytes' if r['bwd_bytes_ms'] >= r['bwd_ops_ms'] else 'operations'}"
-              f"; kernel/bound {r['bwd_ms'] / r['bwd_bound_ms']:.1f}), plain "
-              f"{r['plain_bwd_ms']:.5f}; fwd+bwd kernel "
+              f"; kernel/bound {r['bwd_ms'] / r['bwd_bound_ms']:.1f}; "
+              f"{r['bwd_tflops']:.2f} TFLOP/s): data kernel (dx, dflow) "
+              f"{r['bwd_data_ms']:.5f} ms, {plan.data_blocks} blocks; weight "
+              f"kernel + reduction {r['bwd_weight_ms']:.5f} ms, "
+              f"{plan.dw_blocks} blocks, {plan.dw_splits} pixel splits; "
+              f"plain {r['plain_bwd_ms']:.5f}; fwd+bwd kernel "
               f"{r['fwd_ms'] + r['bwd_ms']:.5f} vs warpconv "
               f"{r['warpconv_fwd_bwd_ms']:.5f} ms; the wrappers' host time "
               f"a call: fwd {r['host_fwd_ms']:.5f}, bwd "
@@ -575,10 +636,58 @@ def time_deform(gen):
     print(f"deform, the train step's 4 levels summed: fwd kernel "
           f"{total['fwd_ms']:.5f} ms (bound {total['fwd_bound_ms']:.5f}), "
           f"bwd kernel {total['bwd_ms']:.5f} ms (bound "
-          f"{total['bwd_bound_ms']:.5f}), warpconv fwd "
+          f"{total['bwd_bound_ms']:.5f}; data {total['bwd_data_ms']:.5f}, "
+          f"weight {total['bwd_weight_ms']:.5f}), warpconv fwd "
           f"{total['warpconv_fwd_ms']:.5f}, fwd+bwd "
           f"{total['warpconv_fwd_bwd_ms']:.5f}", flush=True)
     return rows, total
+
+
+def deform_vs_warpconv(gen):
+    """Kernels against warpconv at every deformable conv of both models,
+    bf16, single calls after an L2 flush: the forward at the inference
+    levels (batch 4 at 448x1024: MaskFlownet_S's L5..L2, the cascade's
+    L6..L2) and at the cascade step's head levels (no gradient); forward +
+    backward at the cascade frozen step's stage-2 levels (the gradients it
+    asks: dflow and dweight, dweight alone at level 6) and at the S step's
+    (all three; ``time_deform``'s rows). Returns rows and whether the
+    kernels won at every level."""
+    rows = []
+    cases = [("inference", lvl, shape, shape[1], None) for lvl, shape in LEVELS]
+    cases += [("cascade step head", lvl, shape, shape[1], None)
+              for lvl, shape in CASCADE_TRAIN_LEVELS if lvl != 6]
+    cases += [("cascade step", lvl, shape, shape[1],
+               (False, lvl != 6, True)) for lvl, shape in CASCADE_TRAIN_LEVELS]
+    for what, lvl, shape, cout, needs in cases:
+        x, flow, weight, sy, sx, w9, g = deform_inputs(gen, shape, cout,
+                                                       torch.bfloat16)
+        if needs is None:
+            def kern():
+                return deform_fwd(x, sy, sx, w9)
+
+            def wc():
+                with torch.no_grad():
+                    return _warpconv(x, flow, weight, None)
+        else:
+            ins = [t.detach().requires_grad_(need) for t, need in
+                   zip((x, flow, weight), needs)]
+            wanted = [t for t in ins if t.requires_grad]
+
+            def kern():
+                deform_fwd(x, sy, sx, w9)
+                return deform_bwd(x, sy, sx, w9, g, needs)
+
+            def wc():
+                torch.autograd.grad(_warpconv(*ins, None), wanted, g)
+        r = dict(what=what, level=lvl, shape=shape, cout=cout,
+                 needs=needs, kernel_ms=cuda_ms_cold(kern),
+                 warpconv_ms=cuda_ms_cold(wc))
+        rows.append(r)
+        print(f"deform vs warpconv, {what} L{lvl} {shape} -> {cout}"
+              f"{'' if needs is None else f' fwd+bwd {needs}'}: kernel "
+              f"{r['kernel_ms']:.5f} ms, warpconv {r['warpconv_ms']:.5f} ms "
+              f"({r['warpconv_ms'] / r['kernel_ms']:.2f}x)", flush=True)
+    return rows, all(r["kernel_ms"] < r["warpconv_ms"] for r in rows)
 
 
 def check_outputs(outs, b, hw, what):
@@ -600,11 +709,11 @@ def drive_slice(gen):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     p32 = Predictor(params, device="cuda", dtype=torch.float32)
-    corr_fwd.launches = 0
+    reset_counts()
     kern = p32.do_batch(img1, img2)
     torch.cuda.synchronize()
-    require(corr_fwd.launches == 5,
-            f"{corr_fwd.launches} kernel launches in one forward, not 5")
+    got = {k: v for k, v in launch_counts().items() if v}
+    require(got == S_FWD, f"one forward launched {got}, not {S_FWD}")
     with mock.patch.object(model_module, "correlation", correlation_plain):
         plain = p32.do_batch(img1, img2)
     torch.cuda.synchronize()
@@ -620,8 +729,8 @@ def drive_slice(gen):
     # the card against the CPU path (the one the tests hold against JAX)
     small1, small2 = img1[:1, :, :64, :96], img2[:1, :, :64, :96]
     card = p32.do_batch(small1, small2)[0].cpu()
-    cpu = Predictor(params, device="cpu", dtype=torch.float32).do_batch(
-        small1.cpu(), small2.cpu())[0]
+    cpu = Predictor(params, device="cpu", dtype=torch.float32,
+                    cfg=KERNEL_CFG).do_batch(small1.cpu(), small2.cpu())[0]
     dcpu = (card - cpu).abs().max().item()
     print(f"slice f32 card vs CPU at 64x96: max |dflow| {dcpu:.3e} px "
           f"(tol {FLOW_TOL_PX})", flush=True)
@@ -634,12 +743,12 @@ def drive_slice(gen):
             pbf.do_batch(img1, img2)
     torch.cuda.synchronize()
     require_checked(calls, "slice bf16 main path")
-    corr_fwd.launches = 0
+    reset_counts()
     out = pbf.do_batch(img1, img2)                 # the main path, counted
     torch.cuda.synchronize()
-    launches = corr_fwd.launches
-    require(launches == 5,
-            f"{launches} kernel launches in the main-path forward, not 5")
+    launches = {k: v for k, v in launch_counts().items() if v}
+    require(launches == S_FWD, f"the main-path forward launched {launches}, "
+            f"not {S_FWD}")
     check_outputs(out, SLICE_BATCH, (h, w), "bf16 main path")
     times = []
     torch.cuda.reset_peak_memory_stats()
@@ -734,7 +843,7 @@ def drive_train(gen):
     """Returns (launches of each kernel in the main-path run, ms/step,
     samples/s)."""
     params = init_params(0)
-    f32 = TrainSettings(compute_dtype="float32")
+    f32 = TrainSettings(compute_dtype="float32", model_cfg=KERNEL_CFG)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -773,19 +882,16 @@ def drive_train(gen):
     require_checked(calls, "train bf16 main path")
     torch.cuda.reset_peak_memory_stats()
     timed = 20
-    for k in (corr_fwd, corr_bwd_f1, corr_bwd_f2):
-        k.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     metrics = [trainer.train_batch(*batch, lr=TRAIN_LR)
                for _ in range(timed)]
     torch.cuda.synchronize()
     ms_step = (time.perf_counter() - t0) * 1e3 / timed
-    launches = {k.__name__: k.launches
-                for k in (corr_fwd, corr_bwd_f1, corr_bwd_f2)}
+    launches = {k: v for k, v in launch_counts().items() if v}
     print(f"train main path: {timed} steps launched {launches}", flush=True)
-    for name, n in launches.items():
-        require(n == 5 * timed, f"{name}: {n} launches in {timed} steps, "
-                f"not {5 * timed}")
+    require(launches == {k: v * timed for k, v in S_STEP.items()},
+            f"{timed} steps launched {launches}, not {timed} x {S_STEP}")
     losses += [m["loss"].item() for m in metrics]
     losses += [trainer.train_batch(*batch, lr=TRAIN_LR, sync=True)["loss"]
                for _ in range(30 - len(losses))]
@@ -975,7 +1081,8 @@ def drive_augment(gen):
     # same draws, on the CPU
     small = TrainSettings(compute_dtype="float32", color=color,
                           geo=presets.geometry_aug_config(
-                              "chairs", AUG_SMALL_HW, AUG_SMALL_SRC_HW))
+                              "chairs", AUG_SMALL_HW, AUG_SMALL_SRC_HW),
+                          model_cfg=KERNEL_CFG)
     batch = shifted_batch(gen, 1, AUG_SMALL_SRC_HW)
     card_trainer = Trainer(small, device="cuda", params=params)
     cpu_trainer = Trainer(small, device="cpu", params=params)
@@ -1018,20 +1125,18 @@ def drive_augment(gen):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     timed = 20
-    kernels = (affine_sample, corr_fwd, corr_bwd_f1, corr_bwd_f2)
-    for k in kernels:
-        k.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     metrics = [trainer.train_batch(*batch, lr=TRAIN_LR)
                for _ in range(timed)]
     torch.cuda.synchronize()
     ms_step = (time.perf_counter() - t0) * 1e3 / timed
-    launches = {k.__name__: k.launches for k in kernels}
+    launches = {k: v for k, v in launch_counts().items() if v}
     print(f"augment main path: {timed} steps launched {launches}", flush=True)
-    for name, n in launches.items():
-        per_step = 2 if name == "affine_sample" else 5
-        require(n == per_step * timed, f"{name}: {n} launches in {timed} "
-                f"augmented steps, not {per_step * timed}")
+    per_step = {**S_STEP, "affine_sample": 2}
+    require(launches == {k: v * timed for k, v in per_step.items()},
+            f"{timed} augmented steps launched {launches}, not {timed} x "
+            f"{per_step}")
     losses += [m["loss"].item() for m in metrics]
     require(all(map(math.isfinite, losses)), f"non-finite loss: {losses}")
     print(f"augment bf16 {TRAIN_BATCH}x{AUG_SRC_HW[0]}x{AUG_SRC_HW[1]} -> "
@@ -1124,7 +1229,7 @@ def drive_cascade_infer(gen):
     b = CASCADE_BATCH
     img1 = torch.rand((b, 3, h, w), generator=gen, device="cuda")
     img2 = torch.rand((b, 3, h, w), generator=gen, device="cuda")
-    kern_cfg, warp_cfg = ModelConfig(deform="kernel"), ModelConfig()
+    kern_cfg, warp_cfg = KERNEL_CFG, WARP_CFG
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -1208,7 +1313,7 @@ def drive_cascade_train(gen):
     deform backward, dx included) against warpconv. Returns (launches in
     the main-path run, ms/step, samples/s)."""
     params = init_params(0, model="MaskFlownet")
-    kern_cfg = ModelConfig(deform="kernel")
+    kern_cfg = KERNEL_CFG
     f32 = TrainSettings(model="MaskFlownet", fix_head=True,
                         compute_dtype="float32", model_cfg=kern_cfg)
     torch.backends.cudnn.allow_tf32 = False
@@ -1229,8 +1334,8 @@ def drive_cascade_train(gen):
     batch = shifted_batch(gen, 2, CASCADE_TRAIN_HW)
     kern_trainer = Trainer(f32, device="cuda", params=params)
     warp_trainer = Trainer(TrainSettings(
-        model="MaskFlownet", fix_head=True, compute_dtype="float32"),
-        device="cuda", params=params)
+        model="MaskFlownet", fix_head=True, compute_dtype="float32",
+        model_cfg=WARP_CFG), device="cuda", params=params)
     calls = []
 
     # reads kern_trainer, batch and calls as they stand when it runs: the
@@ -1299,7 +1404,8 @@ def drive_cascade_train(gen):
     kern_trainer = Trainer(TrainSettings(compute_dtype="float32",
                                          model_cfg=kern_cfg), device="cuda",
                            params=s_params)
-    warp_trainer = Trainer(TrainSettings(compute_dtype="float32"),
+    warp_trainer = Trainer(TrainSettings(compute_dtype="float32",
+                                         model_cfg=WARP_CFG),
                            device="cuda", params=s_params)
     calls = []
     compare_on_branches(
@@ -1311,6 +1417,40 @@ def drive_cascade_train(gen):
     require(sorted(asked) == [(c, (True, True, True)) for c in (32, 64, 96, 128)],
             f"the S step's deform_bwd calls {asked}")
     return launches, ms_step, b * 1e3 / ms_step
+
+
+def print_deform_ptxas(log: str) -> None:
+    """One line a deform kernel from ``nvcc -Xptxas -v``: registers, spill
+    stores and loads, and the dynamic shared memory it is launched with
+    (``mfn_deform_smem_bytes``; ptxas counts only static shared memory)."""
+    demangled = subprocess.run(["c++filt"], input=log, capture_output=True,
+                               text=True).stdout or log
+    lib = deform_module._lib()
+    name, spill = None, ""
+    for line in demangled.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'", 2)[1].replace("(anonymous namespace)::",
+                                                  "")
+            name = name.removeprefix("void ").split("(", 1)[0]
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            regs = line.split("Used", 1)[1].split(",")[0].strip()
+            smem = ""
+            args = [int(v) for v in name[name.find("<") + 1:-1].split(",")[1:]
+                    if v.strip().lstrip("-").isdigit()]
+            kind = {"deform_fwd_kernel": 0, "deform_bwd_data_kernel": 1,
+                    "deform_bwd_weight_kernel": 2}.get(name.split("<")[0])
+            if kind is not None:
+                dtype = 1 if "bfloat16" in name else 0
+                # template <T, MI, NI>, <T, MI> and <T, NWN, WM>
+                a, b = (args[1], 0) if kind == 0 else (
+                    (196, 0) if kind == 1 else (args[0], args[1]))
+                smem = (f", {lib.mfn_deform_smem_bytes(kind, dtype, a, b)} B "
+                        f"dynamic shared memory"
+                        f"{' at Cout 196' if kind == 1 else ''}")
+            print(f"  {name}: {regs}; {spill}{smem}", flush=True)
+            name, spill = None, ""
 
 
 def main() -> int:
@@ -1333,6 +1473,9 @@ def main() -> int:
         _build.build()
         for name, info in _build.build_log.items():
             print(f"nvcc {name}.cu: {info['seconds']:.2f} s", flush=True)
+            if name == "deform":
+                print_deform_ptxas(info["log"])
+                continue
             for line in info["log"].splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {line.strip()}")
@@ -1346,6 +1489,16 @@ def main() -> int:
         bwd_err = check_bwd_kernels(gen)
         bwd_timing = time_bwd_levels(gen)
 
+    with phase("deform"):
+        deform_err = check_deform(gen)
+        deform_rows, deform_total = time_deform(gen)
+        vs_rows, kernels_ahead = deform_vs_warpconv(gen)
+        ahead = kernels_ahead and all(
+            r["fwd_ms"] < r["warpconv_fwd_ms"] and r["fwd_ms"] + r["bwd_ms"]
+            < r["warpconv_fwd_bwd_ms"] for r in deform_rows)
+        print(f"deform kernels ahead of warpconv at every level of both "
+              f"models, forward and forward + backward: {ahead}", flush=True)
+
     with phase("slice"):
         infer_launches, per_frame = drive_slice(gen)
 
@@ -1358,10 +1511,6 @@ def main() -> int:
         affine_timing = time_affine(cases)
         del cases
         aug_launches, aug_ms_step, aug_samples_s = drive_augment(gen)
-
-    with phase("deform"):
-        deform_err = check_deform(gen)
-        deform_rows, deform_total = time_deform(gen)
 
     with phase("cascade"):
         cascade_fwd_launches, cascade_per_frame = drive_cascade_infer(gen)
@@ -1414,7 +1563,11 @@ def main() -> int:
                  "bound_ms": r[f"{key}_bound_ms"],
                  "plain_ms": r[f"plain_{key}_ms"],
                  "warpconv_ms": r["warpconv_fwd_ms" if key == "fwd" else
-                                  "warpconv_fwd_bwd_ms"]}
+                                  "warpconv_fwd_bwd_ms"],
+                 "tflops": r[f"{key}_tflops"], "blocks": r["blocks"],
+                 **({"data_ms": r["bwd_data_ms"],
+                     "weight_ms": r["bwd_weight_ms"]} if key == "bwd"
+                    else {})}
                 for r in deform_rows]
 
     train_shapes = ("sum over the 5 level shapes of one bf16 train step, "
@@ -1424,7 +1577,7 @@ def main() -> int:
               launches["corr_fwd"],
               "sum over the 5 level shapes of one bf16 forward, batch 4 at "
               "448x1024; launches in 20 train steps",
-              launches_infer_forward=infer_launches,
+              launches_infer_forward=infer_launches["corr_fwd"],
               launches_cascade_forward=cascade_fwd_launches["corr_fwd"],
               launches_cascade_train=cascade_launches["corr_fwd"],
               launches_aug_train=aug_launches["corr_fwd"],
@@ -1455,7 +1608,10 @@ def main() -> int:
               max_rel_err=deform_err["deform_fwd"][1],
               warpconv_ms=deform_total["warpconv_fwd_ms"],
               per_level=per_level("fwd"),
-              launches_cascade_forward=cascade_fwd_launches["deform_fwd"]),
+              launches_cascade_forward=cascade_fwd_launches["deform_fwd"],
+              launches_infer_forward=infer_launches["deform_fwd"],
+              launches_train=launches["deform_fwd"],
+              launches_aug_train=aug_launches["deform_fwd"]),
         entry("deform_bwd", "deform", (155,), deform_timing("bwd"),
               deform_err["deform_bwd"][0], cascade_launches["deform_bwd"],
               "sum over the 4 full backwards (dx, dflow, dweight) of the "
@@ -1466,7 +1622,10 @@ def main() -> int:
               "forward + backward beside the kernels' forward + backward",
               max_rel_err=deform_err["deform_bwd"][1],
               warpconv_fwd_bwd_ms=deform_total["warpconv_fwd_bwd_ms"],
+              ahead_of_warpconv_everywhere=ahead, vs_warpconv=vs_rows,
               fwd_bwd_ms=deform_total["fwd_ms"] + deform_total["bwd_ms"],
+              launches_train=launches["deform_bwd"],
+              launches_aug_train=aug_launches["deform_bwd"],
               per_level=per_level("bwd"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

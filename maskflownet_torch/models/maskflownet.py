@@ -13,10 +13,12 @@ Conventions kept from the JAX package:
   * parameter names are the JAX package's (``conv1a/w``, ``pred_flow6/b``,
     ...); shared pyramid weights are one entry used for both images; the
     cascade's head lives under ``MaskFlownet_S/`` (``HEAD_SCOPE``);
-  * ``ModelConfig.deform`` picks the deformable conv's formulation
-    (``warpconv``, the JAX package's TPU default, or ``kernel``, the CUDA
-    kernels of ``csrc/deform.cu``), the explicit counterpart of the JAX
-    package's ``MFN_DEFORM``.
+  * ``ModelConfig.deform`` picks the deformable conv's formulation:
+    ``auto`` (the default, as the JAX package's) takes ``kernel``, the CUDA
+    kernels of ``csrc/deform.cu``, on a CUDA device and ``warpconv`` (the
+    JAX package's TPU default) elsewhere; ``warpconv``, ``gather`` and
+    ``kernel`` force one, the explicit counterpart of the JAX package's
+    ``MFN_DEFORM``.
 
 The TPU-only reformulations of the JAX model (space-to-depth pyramids,
 per-piece dense convs) are not part of the port: they compute the same
@@ -44,7 +46,7 @@ class ModelConfig:
     deform_bias: bool = True
     upfeat_ch: tuple[int, ...] = (16, 16, 16, 16)
     strict_c2s_compat: bool = True
-    deform: str = "warpconv"     # 'warpconv' | 'gather' | 'kernel'
+    deform: str = "auto"         # 'auto' | 'warpconv' | 'gather' | 'kernel'
 
     @property
     def scale(self) -> float:

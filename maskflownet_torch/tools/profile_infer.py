@@ -2,7 +2,7 @@
 
     python -m maskflownet_torch.tools.profile_infer [--path infer|train]
         [--aug] [--model MaskFlownet_S|MaskFlownet]
-        [--deform warpconv|kernel] [--out PATH]
+        [--deform auto|warpconv|kernel] [--out PATH]
 
 Seeded weights at the published widths drive, in bf16, either
 ``Predictor.do_batch`` on 4 Sintel-sized pairs (436x1024; ``--path
@@ -11,8 +11,8 @@ infer``, the default) or ``Trainer.train_batch`` on a synthetic batch
 batch of 8 at 320x448, for the MaskFlownet cascade the frozen-head step
 (``fix_head``) on a batch of 4 at 320x768 -- the paths of
 ``chip_smoke.py``. ``--deform`` picks the deformable conv's formulation
-(``warpconv``, the default, or ``kernel``, the CUDA kernels of
-``csrc/deform.cu``). With ``--aug`` the MaskFlownet_S step augments as
+(``auto``, the default: on the card ``kernel``, the CUDA kernels of
+``csrc/deform.cu``; or ``warpconv`` for the A/B). With ``--aug`` the MaskFlownet_S step augments as
 the FlyingChairs stage does (the chairs presets' colour and geometry,
 from 384x512 sources to 320x448 crops). For cuDNN autotuning off and on, in
 turns (off, on, on, off): host time per batch ended by
@@ -140,8 +140,8 @@ def main(argv=None) -> int:
                          "augmentation, from 384x512 sources")
     ap.add_argument("--model", choices=("MaskFlownet_S", "MaskFlownet"),
                     default="MaskFlownet_S")
-    ap.add_argument("--deform", choices=("warpconv", "kernel"),
-                    default="warpconv")
+    ap.add_argument("--deform", choices=("auto", "warpconv", "kernel"),
+                    default="auto")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if args.aug and (args.path != "train" or args.model != "MaskFlownet_S"):
@@ -204,7 +204,7 @@ def main(argv=None) -> int:
     out = Path(args.out or (
         f"build/profile_{args.path}{'_aug' if args.aug else ''}"
         f"{'_cascade' if args.model == 'MaskFlownet' else ''}"
-        f"{'_kernel' if args.deform == 'kernel' else ''}.json"))
+        f"{'_warpconv' if args.deform == 'warpconv' else ''}.json"))
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
     print(f"wrote {out}")

@@ -12,8 +12,8 @@ augmentation in the compute dtype; ``centralize``; the forward of
 ``settings.model`` (MaskFlownet_S or the MaskFlownet cascade), the mean
 multiscale EPE and the ``epe`` metric of the 4x upsampled finest flow,
 backward (the cost volume's gradient runs the hand-written kernels on the
-card, and so does the deformable conv's with ``model_cfg.deform =
-"kernel"``), then Adam (b1 0.9, b2 0.999, eps 1e-8, bias-corrected as
+card, and so does the deformable conv's: ``model_cfg.deform``'s
+``"auto"`` takes its kernels there), then Adam (b1 0.9, b2 0.999, eps 1e-8, bias-corrected as
 ``optax.scale_by_adam``) applied as ``-lr * update`` with the lr given per
 call. The parameters are held in f32 (the master weights) and cast to the
 compute dtype inside the forward, so their gradients come back in f32.
