@@ -12,9 +12,17 @@ Phases, each timed on its own line:
      and of the cascade's train step (batch 4, 320x768; md=4 and md=2),
      and ``corr_bwd_f1``/``corr_bwd_f2`` against their plain versions at
      the five level shapes of the FlyingChairs train step (md=4) and of
-     the cascade's (md=2); each plus odd shapes, f32 and bf16, LeakyReLU
-     on and off; then each level's bf16 kernel time (CUDA events, warm,
-     median) beside its bound and the plain version's time;
+     the cascade's (md=2); each plus odd shapes and the edges of the
+     tiling (``CORR_EDGES``: md 1-4, N=1, W below the tile and not a
+     multiple of 8, a partial last channel chunk, 7 cluster ranks), f32
+     and bf16, LeakyReLU on and off, f16 once (``CORR_F16_CASES``); the
+     gradients also on a cotangent that is a channel slice of a larger
+     tensor (bitwise equal to the contiguous result), and through
+     ``correlation`` and ``torch.cat`` without a copy of it; then every
+     level of every main path in bf16 (``CORR_PATHS``): each kernel with
+     the L2 flushed before each call, back to back, the wrapper's host
+     time a call, the plain version's time, the bound and the tiling
+     ``corr_plan`` gives (blocks, threads, cluster size);
   4. deform: ``deform_fwd`` and ``deform_bwd`` (each set of gradients the
      paths ask for: dweight; dflow and dweight; all three) against the
      plain pair ``deform_fwd_plain``/``deform_bwd_plain`` at the four
@@ -112,7 +120,7 @@ from maskflownet_torch.models import HEAD_SCOPE, ModelConfig, init_params
 from maskflownet_torch.ops import _build
 from maskflownet_torch.ops.affine import affine_sample, affine_sample_plain
 from maskflownet_torch.ops.correlation import (corr_bwd_f1, corr_bwd_f2,
-                                               corr_fwd,
+                                               corr_fwd, correlation,
                                                correlation_bwd_f1_plain,
                                                correlation_bwd_f2_plain,
                                                correlation_plain)
@@ -142,10 +150,32 @@ TRAIN_EXTRA = [(2, (8, 64, 40, 56)), (4, (1, 8, 9, 13)), (2, (1, 8, 9, 13))]
 CASCADE_TRAIN_LEVELS = [(2, (4, 32, 80, 192)), (3, (4, 64, 40, 96)),
                         (4, (4, 96, 20, 48)), (5, (4, 128, 10, 24)),
                         (6, (4, 196, 5, 12))]
-# f32: kernel and plain version sum over C in different orders; bf16: the
-# kernel's output is one bf16 rounding (<= 2^-8 relative) of the f32 value
+# the correlation kernels' cases at the edges of their tiling, (md, (N, C,
+# H, W)), held in f32 and bf16 like the levels: md 1-4; N = 1; W below the
+# 16-column tile and W not a multiple of 8 (copies of 4, 2 and 1 element);
+# C = 20, 36, 100 with a partial last 32-channel chunk, and C = 196 at N =
+# 1 split over 7 cluster ranks
+CORR_EDGES = [(1, (1, 20, 6, 7)), (2, (3, 100, 6, 12)), (3, (2, 40, 5, 18)),
+              (4, (2, 36, 7, 33)), (4, (1, 196, 5, 7)), (1, (2, 24, 4, 40))]
+# f16, run once for the two tensor-core kernels: the S step's level 2 and
+# one edge
+CORR_F16_CASES = [(4, TRAIN_LEVELS[0][1]), (4, (2, 36, 7, 33))]
+# f32: kernel and plain version sum over C in different orders; bf16 and
+# f16: the kernel's output is one rounding (<= 2^-8, 2^-11 relative) of the
+# f32 value
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
-       torch.bfloat16: dict(rtol=8e-3, atol=1e-5)}
+       torch.bfloat16: dict(rtol=8e-3, atol=1e-5),
+       torch.float16: dict(rtol=1e-3, atol=1e-5)}
+# the correlation timing rows, (path, md, levels): every level of the three
+# main paths at each md it runs (the cascade's stage 2 at md=2); the
+# gradients where a backward runs: the S step (md=4) and the frozen cascade
+# step, whose backward reaches only stage 2 (md=2)
+CORR_PATHS = [("S step", 4, TRAIN_LEVELS), ("inference", 4, LEVELS),
+              ("cascade inference", 2, LEVELS),
+              ("cascade step", 4, CASCADE_TRAIN_LEVELS),
+              ("cascade step", 2, CASCADE_TRAIN_LEVELS)]
+CORR_BWD_PATHS = [("S step", 4, TRAIN_LEVELS),
+                  ("cascade step", 2, CASCADE_TRAIN_LEVELS)]
 SLICE_BATCH, SLICE_HW = 4, (436, 1024)
 # f32 slice, kernel path vs plain path: both f32 with TF32 off, differing
 # only in the correlation's summation order (~1e-7 relative), which the
@@ -276,18 +306,55 @@ def bwd_bound_ms(shape, md: int, dtype: torch.dtype, leaky: bool):
     return bytes_ms, ops_ms
 
 
+def plan_note(shape, md: int, kernel: str) -> str:
+    """The tiling ``corr_plan`` gives a correlation kernel on this card, as
+    a short string, its shared memory held against the library's own
+    count."""
+    plan = corr_module.corr_plan(*shape, md, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    lib = corr_module._lib()
+    if kernel == "corr_fwd":
+        for es in (2, 4):
+            require(lib.mfn_corr_smem_bytes(
+                0, es, md, plan.fwd_th, plan.fwd_wj, plan.fwd_ndg,
+                plan.fwd_kc) == corr_module.fwd_smem_bytes(
+                    es, md, plan.fwd_th, plan.fwd_wj, plan.fwd_ndg,
+                    plan.fwd_kc), "corr_fwd shared memory: library and plan "
+                    "disagree")
+        return (f"{plan.fwd_blocks} blocks of {plan.fwd_threads} threads, "
+                f"cluster {plan.fwd_cs} (th {plan.fwd_th}, wj {plan.fwd_wj}, "
+                f"ndg {plan.fwd_ndg}, kc {plan.fwd_kc}"
+                f"{', at its floor' if plan.fwd_floor else ''})")
+    if kernel == "corr_bwd_f2":
+        for es in (2, 4):
+            require(lib.mfn_corr_smem_bytes(
+                1, es, md, plan.bwd_th, plan.bwd_wj, plan.bwd_cpb, 0) ==
+                corr_module.bwd_smem_bytes(es, md, plan.bwd_th, plan.bwd_wj,
+                                           plan.bwd_cpb),
+                "corr_bwd_f2 shared memory: library and plan disagree")
+        return (f"{plan.bwd_blocks} blocks of {plan.bwd_threads} threads, "
+                f"cluster 1 (th {plan.bwd_th}, wj {plan.bwd_wj}, cpb "
+                f"{plan.bwd_cpb}{', at its floor' if plan.bwd_floor else ''})")
+    n, c, h, w = shape
+    return f"{math.ceil(w / 32) * math.ceil(h / 8) * n * math.ceil(c / 8)} " \
+        "blocks of 256 threads"
+
+
 def check_kernel(gen):
     """corr_fwd vs the plain version on every case: md=4 at the level
-    shapes of every main path, md=2 at the cascade's, and the extra cases;
-    returns the largest f32 error."""
-    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    shapes of every main path, md=2 at the cascade's, the extra cases and
+    the tiling's edges, f32 and bf16; f16 at CORR_F16_CASES; returns the
+    largest f32 error."""
+    worst = {dt: 0.0 for dt in TOL}
     cases = ([(4, s) for _, s in LEVELS + TRAIN_LEVELS + CASCADE_TRAIN_LEVELS]
              + [(2, s) for _, s in LEVELS + CASCADE_TRAIN_LEVELS]
-             + EXTRA_CASES)
+             + EXTRA_CASES + CORR_EDGES)
     for md, shape in cases:
         base1 = torch.randn(shape, generator=gen, device="cuda")
         base2 = torch.randn(shape, generator=gen, device="cuda")
-        for dtype in (torch.float32, torch.bfloat16):
+        dtypes = (torch.float32, torch.bfloat16) + (
+            (torch.float16,) if (md, shape) in CORR_F16_CASES else ())
+        for dtype in dtypes:
             f1, f2 = base1.to(dtype), base2.to(dtype)
             for leaky in (None, 0.1):
                 got = corr_fwd(f1, f2, md, leaky)
@@ -299,10 +366,12 @@ def check_kernel(gen):
                 err = (got.float() - want).abs().max().item()
                 worst[dtype] = max(worst[dtype], err)
             CHECKED.add(("corr_fwd", tuple(shape), md, dtype))
-        print(f"corr_fwd check md={md} {shape}: ok", flush=True)
-    print(f"corr_fwd max |err|: f32 {worst[torch.float32]:.3e} "
-          f"(tol {TOL[torch.float32]}), bf16 {worst[torch.bfloat16]:.3e} "
-          f"(tol {TOL[torch.bfloat16]})", flush=True)
+        print(f"corr_fwd check md={md} {shape} "
+              f"{'/'.join(str(d).split('.')[1] for d in dtypes)}: ok; "
+              f"{plan_note(shape, md, 'corr_fwd')}", flush=True)
+    print("corr_fwd max |err|: " + ", ".join(
+        f"{str(dt).split('.')[1]} {worst[dt]:.3e} (tol {TOL[dt]})"
+        for dt in TOL), flush=True)
     return worst[torch.float32]
 
 
@@ -317,23 +386,45 @@ def _bwd_inputs(shape, md, dtype, leaky, gen):
     return (f1, f2), g, out
 
 
+def channel_slice(g):
+    """g as the channel slice of a larger tensor that a concatenation's
+    gradient hands the correlation (3 channels before it, 4 after): each
+    image one dense block, the images further apart."""
+    n, dd, h, w = g.shape
+    big = torch.zeros((n, dd + 7, h, w), dtype=g.dtype, device=g.device)
+    big[:, 3:3 + dd] = g
+    return big[:, 3:3 + dd]
+
+
 def check_bwd_kernels(gen):
     """corr_bwd_f1/f2 vs their plain versions at the S train step's level
-    shapes (md=4), the cascade step's (md=2) and the extra cases; returns
-    the largest f32 error of each."""
-    worst = {(name, dt): 0.0 for name, *_ in BWD
-             for dt in (torch.float32, torch.bfloat16)}
+    shapes (md=4), the cascade step's (md=2), the extra cases and the
+    tiling's edges, f32 and bf16 (corr_bwd_f2 also f16 at
+    CORR_F16_CASES); each also on the cotangent as a channel slice of a
+    larger tensor, required bitwise equal to the result on a contiguous
+    copy. Returns the largest f32 error of each."""
+    worst = {(name, dt): 0.0 for name, *_ in BWD for dt in TOL}
     cases = ([(4, s) for _, s in TRAIN_LEVELS]
-             + [(2, s) for _, s in CASCADE_TRAIN_LEVELS] + TRAIN_EXTRA)
+             + [(2, s) for _, s in CASCADE_TRAIN_LEVELS] + TRAIN_EXTRA
+             + CORR_EDGES)
     for md, shape in cases:
-        for dtype in (torch.float32, torch.bfloat16):
+        f16 = (md, shape) in CORR_F16_CASES
+        for dtype in (torch.float32, torch.bfloat16) + (
+                (torch.float16,) if f16 else ()):
             for leaky in (None, 0.1):
                 feats, g, out = _bwd_inputs(shape, md, dtype, leaky, gen)
                 if leaky is not None:
                     require(bool((out < 0).any() and (out > 0).any()),
                             "the saved output holds both signs")
+                gs = channel_slice(g)
+                require(corr_module.dense_per_image(gs) and (
+                    shape[0] == 1 or not gs.is_contiguous()),
+                    "the channel slice is dense per image, not contiguous")
                 for name, kernel, plain, which in BWD:
+                    if dtype == torch.float16 and name == "corr_bwd_f1":
+                        continue
                     got = kernel(g, feats[which], out, md, leaky)
+                    got_s = kernel(gs, feats[which], out, md, leaky)
                     torch.cuda.synchronize()
                     want = plain(g.float(), feats[which].float(),
                                  None if out is None else out.float(), md,
@@ -342,67 +433,135 @@ def check_bwd_kernels(gen):
                             f"{name} output {got.dtype} {tuple(got.shape)}")
                     torch.testing.assert_close(got.float(), want,
                                                **TOL[dtype])
+                    require(torch.equal(got_s, got), f"{name} on a channel "
+                            "slice of the cotangent differs from the "
+                            "contiguous result")
                     err = (got.float() - want).abs().max().item()
                     worst[(name, dtype)] = max(worst[(name, dtype)], err)
                     CHECKED.add((name, tuple(shape), md, dtype))
-        print(f"corr_bwd_f1/f2 check md={md} {shape}: ok", flush=True)
+        print(f"corr_bwd_f1/f2 check md={md} {shape}{' (+f16)' if f16 else ''}"
+              f" (cotangent contiguous and a channel slice): ok; corr_bwd_f2 "
+              f"{plan_note(shape, md, 'corr_bwd_f2')}", flush=True)
     for name, *_ in BWD:
-        print(f"{name} max |err|: f32 {worst[(name, torch.float32)]:.3e} "
-              f"(tol {TOL[torch.float32]}), bf16 "
-              f"{worst[(name, torch.bfloat16)]:.3e} "
-              f"(tol {TOL[torch.bfloat16]})", flush=True)
+        print(f"{name} max |err|: " + ", ".join(
+            f"{str(dt).split('.')[1]} {worst[(name, dt)]:.3e}" for dt in TOL
+            if not (dt == torch.float16 and name == "corr_bwd_f1")),
+            flush=True)
     return {name: worst[(name, torch.float32)] for name, *_ in BWD}
 
 
-def time_bwd_levels(gen):
-    """Per-level times of each gradient kernel and its plain version, bf16
-    with the LeakyReLU (the train step's case)."""
-    totals = {name: dict(ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
-              for name, *_ in BWD}
-    for lvl, shape in TRAIN_LEVELS:
-        feats, g, out = _bwd_inputs(shape, 4, torch.bfloat16, 0.1, gen)
-        bytes_ms, ops_ms = bwd_bound_ms(shape, 4, torch.bfloat16, True)
-        bound = max(bytes_ms, ops_ms)
-        for name, kernel, plain, which in BWD:
-            f = feats[which]
-            ms = cuda_ms(lambda: kernel(g, f, out, 4, 0.1))
-            plain_ms = cuda_ms(lambda: plain(g, f, out, 4, 0.1), reps=11,
-                               inner=3)
-            print(f"{name} level {lvl} {shape} bf16: kernel {ms:.5f} ms, "
-                  f"plain {plain_ms:.5f} ms, bound {bound:.5f} ms "
-                  f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; "
-                  f"bytes {bytes_ms:.5f}, ops {ops_ms:.5f}), kernel/bound "
-                  f"{ms / bound:.2f}", flush=True)
-            for key, v in (("ms", ms), ("plain_ms", plain_ms),
-                           ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
-                totals[name][key] += v
-    return totals
+def check_cotangent_not_copied(gen):
+    """Through ``correlation`` and a concatenation, as the dense blocks use
+    it: the backward hands both gradient kernels the concatenation's
+    gradient slice itself, not a copy."""
+    shape, md = TRAIN_LEVELS[1][1], 4
+    f1, f2 = (torch.randn(shape, generator=gen, device="cuda").bfloat16()
+              .requires_grad_() for _ in range(2))
+    other = torch.randn((shape[0], 5, *shape[2:]), generator=gen,
+                        device="cuda").bfloat16()
+    seen = []
+    spies = []
+    for real in (corr_bwd_f1, corr_bwd_f2):
+        def spy(g, *args, _real=real):
+            seen.append((_real.__name__, g.data_ptr(), g.stride()))
+            return _real(g, *args)
+        spy.launches = real.launches
+        spies.append((real, spy))
+    with contextlib.ExitStack() as stack:
+        for real, spy in spies:
+            stack.enter_context(mock.patch.object(corr_module, real.__name__,
+                                                  spy))
+        y = torch.cat([other, correlation(f1, f2, md, 0.1), other], 1)
+        gy = torch.randn(y.shape, generator=gen, device="cuda").bfloat16()
+        y.backward(gy)
+    for real, spy in spies:
+        real.launches = spy.launches
+    torch.cuda.synchronize()
+    want_ptr = gy.data_ptr() + 5 * gy.stride(1) * gy.element_size()
+    require(len(seen) == 2 and all(ptr == want_ptr and st == gy.stride()
+                                   for _, ptr, st in seen),
+            f"the gradient kernels got a copy of the cotangent: {seen}")
+    print(f"cotangent through torch.cat: both gradient kernels read the "
+          f"slice in place (strides {gy.stride()}, no copy)", flush=True)
 
 
-def time_levels(gen, levels=LEVELS):
-    """Per-level forward kernel and plain times in bf16 (the main path's
-    dtype)."""
-    total = dict(ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
-    for lvl, shape in levels:
-        f1 = torch.randn(shape, generator=gen, device="cuda").bfloat16()
-        f2 = torch.randn(shape, generator=gen, device="cuda").bfloat16()
-        ms = cuda_ms(lambda: corr_fwd(f1, f2, 4, 0.1))
-        plain_ms = cuda_ms(lambda: correlation_plain(f1, f2, 4, 0.1), reps=11,
-                           inner=3)
-        g1, g2 = f1.float(), f2.float()
-        f32_ms = cuda_ms(lambda: corr_fwd(g1, g2, 4, 0.1))
-        bytes_ms, ops_ms = corr_bound_ms(shape, 4, torch.bfloat16)
-        bound = max(bytes_ms, ops_ms)
-        print(f"corr_fwd level {lvl} {shape} bf16: kernel {ms:.5f} ms, "
-              f"plain {plain_ms:.5f} ms, bound {bound:.5f} ms "
-              f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; bytes "
-              f"{bytes_ms:.5f}, ops {ops_ms:.5f}), kernel/bound "
-              f"{ms / bound:.2f}; f32 kernel {f32_ms:.5f} ms",
-              flush=True)
-        for key, v in (("ms", ms), ("plain_ms", plain_ms),
-                       ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
-            total[key] += v
-    return total
+def host_ms(fn, calls: int = 100) -> float:
+    """Host time of one call of ``fn`` (a launch well inside the queue)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return t
+
+
+def time_corr(gen):
+    """bf16 with the LeakyReLU (the paths' case), every level of every main
+    path (CORR_PATHS; the gradients at CORR_BWD_PATHS): each kernel with
+    the L2 flushed before the call, back to back (L2-warm), the wrapper's
+    host time a call, the plain version (L2 flushed), the bound and the
+    plan. Returns the rows."""
+    rows = []
+    for kernels, paths in ((("corr_fwd",), CORR_PATHS),
+                           (("corr_bwd_f1", "corr_bwd_f2"), CORR_BWD_PATHS)):
+        for path, md, levels in paths:
+            for lvl, shape in levels:
+                (f1, f2), g, out = _bwd_inputs(shape, md, torch.bfloat16,
+                                               0.1, gen)
+                for name in kernels:
+                    if name == "corr_fwd":
+                        def kern():
+                            return corr_fwd(f1, f2, md, 0.1)
+
+                        def plain():
+                            return correlation_plain(f1, f2, md, 0.1)
+                        bytes_ms, ops_ms = corr_bound_ms(shape, md,
+                                                         torch.bfloat16)
+                    else:
+                        _, kernel, plain_fn, which = next(
+                            b for b in BWD if b[0] == name)
+                        f = (f1, f2)[which]
+
+                        def kern(kernel=kernel, f=f):
+                            return kernel(g, f, out, md, 0.1)
+
+                        def plain(plain_fn=plain_fn, f=f):
+                            return plain_fn(g, f, out, md, 0.1)
+                        bytes_ms, ops_ms = bwd_bound_ms(shape, md,
+                                                        torch.bfloat16, True)
+                    row = dict(kernel=name, path=path, md=md, level=lvl,
+                               shape=list(shape), ms=cuda_ms_cold(kern),
+                               warm_ms=cuda_ms(kern), host_ms=host_ms(kern),
+                               plain_ms=cuda_ms_cold(plain, reps=5),
+                               bound_ms=max(bytes_ms, ops_ms),
+                               bound_by="bytes" if bytes_ms >= ops_ms
+                               else "operations",
+                               plan=plan_note(shape, md, name))
+                    rows.append(row)
+                    print(f"{name} {path} md={md} level {lvl} {shape} bf16: "
+                          f"kernel {row['ms']:.5f} ms L2 flushed (warm "
+                          f"{row['warm_ms']:.5f}, host {row['host_ms']:.5f} "
+                          f"a call), plain {row['plain_ms']:.5f} ms, bound "
+                          f"{row['bound_ms']:.5f} ms ({row['bound_by']}), "
+                          f"kernel/bound {row['ms'] / row['bound_ms']:.2f}; "
+                          f"{row['plan']}", flush=True)
+    return rows
+
+
+def corr_timing(rows, name, path="S step"):
+    """One kernel's rows of one path summed (the S step's five levels), as
+    the ``kernels`` line takes them."""
+    sel = [r for r in rows if r["kernel"] == name and r["path"] == path]
+    by = {kind: sum(r["bound_ms"] for r in sel if r["bound_by"] == kind)
+          for kind in ("bytes", "operations")}
+    return {"ms": sum(r["ms"] for r in sel),
+            "plain_ms": sum(r["plain_ms"] for r in sel),
+            "warm_ms": sum(r["warm_ms"] for r in sel),
+            "host_ms": sum(r["host_ms"] for r in sel),
+            "bound_ms": sum(r["bound_ms"] for r in sel),
+            "bound_by": max(by, key=by.get), "library_ms": None}
 
 
 def deform_inputs(gen, shape, cout, dtype, flow=None):
@@ -1483,11 +1642,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     with phase("kernels"):
         max_err = check_kernel(gen)
-        timing = time_levels(gen)
-        print("corr_fwd at the train step's levels:", flush=True)
-        time_levels(gen, TRAIN_LEVELS)
         bwd_err = check_bwd_kernels(gen)
-        bwd_timing = time_bwd_levels(gen)
+        check_cotangent_not_copied(gen)
+        corr_rows = time_corr(gen)
 
     with phase("deform"):
         deform_err = check_deform(gen)
@@ -1570,28 +1727,32 @@ def main() -> int:
                     else {})}
                 for r in deform_rows]
 
-    train_shapes = ("sum over the 5 level shapes of one bf16 train step, "
-                    "batch 8 at 320x448; launches in 20 steps")
+    def corr_entry(name, lines, err, launched, **extra):
+        timing = corr_timing(corr_rows, name)
+        return entry(
+            name, "correlation", lines, timing, err, launched,
+            "sum over the 5 level shapes of one bf16 S train step (batch 8 "
+            "at 320x448, md=4), ms with the L2 flushed before each call; "
+            "launches in 20 S train steps; per_level: every level of every "
+            "main path", ms_l2_warm=timing["warm_ms"],
+            host_ms_per_call=timing["host_ms"],
+            per_level=[r for r in corr_rows if r["kernel"] == name], **extra)
+
     print(json.dumps({"kernels": [
-        entry("corr_fwd", "correlation", (62, 191), timing, max_err,
-              launches["corr_fwd"],
-              "sum over the 5 level shapes of one bf16 forward, batch 4 at "
-              "448x1024; launches in 20 train steps",
-              launches_infer_forward=infer_launches["corr_fwd"],
-              launches_cascade_forward=cascade_fwd_launches["corr_fwd"],
-              launches_cascade_train=cascade_launches["corr_fwd"],
-              launches_aug_train=aug_launches["corr_fwd"],
-              slice_ms_per_frame=per_frame),
-        entry("corr_bwd_f1", "correlation", (104, 232),
-              bwd_timing["corr_bwd_f1"], bwd_err["corr_bwd_f1"],
-              launches["corr_bwd_f1"], train_shapes,
-              launches_aug_train=aug_launches["corr_bwd_f1"],
-              launches_cascade_train=cascade_launches["corr_bwd_f1"]),
-        entry("corr_bwd_f2", "correlation", (127, 253),
-              bwd_timing["corr_bwd_f2"], bwd_err["corr_bwd_f2"],
-              launches["corr_bwd_f2"], train_shapes,
-              launches_aug_train=aug_launches["corr_bwd_f2"],
-              launches_cascade_train=cascade_launches["corr_bwd_f2"]),
+        corr_entry("corr_fwd", (62, 191), max_err, launches["corr_fwd"],
+                   launches_infer_forward=infer_launches["corr_fwd"],
+                   launches_cascade_forward=cascade_fwd_launches["corr_fwd"],
+                   launches_cascade_train=cascade_launches["corr_fwd"],
+                   launches_aug_train=aug_launches["corr_fwd"],
+                   slice_ms_per_frame=per_frame),
+        corr_entry("corr_bwd_f1", (104, 232), bwd_err["corr_bwd_f1"],
+                   launches["corr_bwd_f1"],
+                   launches_aug_train=aug_launches["corr_bwd_f1"],
+                   launches_cascade_train=cascade_launches["corr_bwd_f1"]),
+        corr_entry("corr_bwd_f2", (127, 253), bwd_err["corr_bwd_f2"],
+                   launches["corr_bwd_f2"],
+                   launches_aug_train=aug_launches["corr_bwd_f2"],
+                   launches_cascade_train=cascade_launches["corr_bwd_f2"]),
         entry("affine_sample", "affine", (52,), affine_timing, affine_err,
               aug_launches["affine_sample"],
               "sum over the 2 launches of one augmented step, f32, batch 8: "

@@ -8,53 +8,78 @@
 //
 // for dy, dx in [-md, md], f2 zero outside the image, NCHW f1/f2 in f32,
 // bf16 or f16, output (N, D*D, H, W) in the input dtype. act is
-// LeakyReLU(leaky) applied to the f32 accumulator before the single
-// cast-and-store, or the identity.
+// LeakyReLU(leaky) applied to the f32 sum before the single cast-and-store,
+// or the identity.
 //
-// Replaces both TPU forward kernels of maskflownet_tpu/ops/pallas/
-// correlation.py: _corr_fwd_kernel (NHWC, C on the lanes) and
-// _hm_fwd_kernel (H-major, W on the lanes). They compute this one function
-// in two layouts; the split exists for the TPU's (8, 128) lane tiling
-// (maskflownet_tpu/ops/correlation.py:51-60) and has no reason on Hopper.
+// corr_fwd_kernel replaces both TPU forward kernels of
+// maskflownet_tpu/ops/pallas/correlation.py: _corr_fwd_kernel :62 (NHWC, C
+// on the lanes) and _hm_fwd_kernel :191 (H-major, W on the lanes). They
+// compute this one function in two layouts; the split exists for the TPU's
+// (8, 128) lane tiling (maskflownet_tpu/ops/correlation.py:51-60) and has
+// no reason on Hopper.
 //
-// What bounds it on an H100: bytes. Per pixel it reads 2*C input values
-// and writes D*D = 81 outputs (md = 4) -- the cost volume is the largest
-// activation of the network -- against 2*C*81 flops: under 81/s flops per
-// byte for s-byte I/O (~18 for bf16 at C = 32, ~34 at C = 196), far below
-// the bf16 tensor-core ridge (~295 flops/byte). This version does its
-// arithmetic as f32 FMAs on the CUDA cores, whose ridge (~20 flops/byte)
-// the deep levels reach, so there the arithmetic is as costly as the
-// bytes; moving the channel reduction onto tensor cores is later work. The
-// design touches device memory as little as the function allows:
-//   * one block per (n, TH x TW output tile); the f1 tile and the f2 halo
-//     tile (TH+2md) x (TW+2md) of CC channels are staged in shared memory
-//     (as f32) once and every staged f2 value serves all D*D taps of up to
-//     D*D output pixels, so f1 and f2 are read from device memory about
-//     once (plus the halo);
-//   * the channel reduction loops over C in chunks of CC, so any C fits
-//     (C = 196 at level 6); products and sums stay in f32 registers, one
-//     accumulator per displacement (D*D per thread);
-//   * each output value is written exactly once, after the epilogue; a
-//     warp writes 32 consecutive x of one displacement plane, so the
-//     stores are coalesced along W.
-// This is the simple first version: no TMA, no wgmma, one output pixel
-// per thread, and one shared-memory load per FMA, which caps the inner
-// loop at a quarter of the SM's FMA rate.
+// What bounds it on an H100: on paper bytes, 2*C inputs and D*D = 81
+// outputs a pixel (md = 4) against 2*C*81 flops; the cost volume is the
+// largest activation of the network. In practice the level shapes are small
+// (C = 32..196, 35 to 28672 pixels an image) and a block's chain of load,
+// barrier, products and epilogue is short work behind long latencies, so
+// what bounds a call is how many blocks a multiprocessor keeps in flight
+// and the instructions a block spends staging and storing (PERF.md §6).
+// The first version launched 8-320 blocks on 132 SMs and did one
+// shared-memory load per FMA. What this design does:
+//   * a band GEMM on the tensor cores. For one output row y, a tile of 16
+//     columns x0.. and one displacement row dy, A = f1[y, x0:x0+16, c] (16 x
+//     C) times B = f2[y+dy, x0-4 : x0+20, c]^T (C x 24, three n8 tiles) with
+//     mma.sync m16n8k16 (bf16 or f16 in, f32 accumulate); the outputs are
+//     the band acc[x, x + 4 - md + dx], dx in [0, 2md], 9 of every 24
+//     columns at md = 4. bf16 x bf16 products are exact in f32, so the
+//     result is the f32 sum in another order, rounded once; so for f16.
+//     The window starts at x0 - 4 for every md, so that its copies are
+//     8-byte aligned whenever W % 4 == 0 (a 16-byte copy would need a
+//     fourth n8 tile, and ldmatrix needs the window's first column on a
+//     16-byte boundary).
+//   * f1's tile and f2's halo are staged from NCHW as they lie (pixels
+//     contiguous) by cp.async -- 16 or 8 bytes where the addresses allow,
+//     narrower down to one element where W is odd -- double buffered over
+//     chunks of 32 channels, and read by ldmatrix.trans: no NHWC copy.
+//     Channel rows are padded to an odd multiple of 16 bytes, so the eight
+//     rows of an ldmatrix hit distinct banks.
+//   * a warp owns one (output row, 16-column tile, group of 3 dy rows) of
+//     its block: one A fragment serves three dy rows, and 36 f32
+//     accumulators stay in registers over the whole channel loop. A block
+//     covers th output rows, 16*wj columns and ndg groups (up to all of
+//     them; at least 4 warps, the extra ones only stage and store), so f2's
+//     rows are staged once for th + 3*ndg - 1 rows instead of once a row
+//     and dy. Three blocks a multiprocessor (80 registers).
+//   * the grid fills the card at every level: corr_plan (ops/correlation.py)
+//     splits the dy groups across blocks and the channels across the blocks
+//     of one thread-block cluster (up to 8) until a level launches two
+//     blocks a multiprocessor. The ranks of a cluster leave their band
+//     partials in shared memory; after a cluster barrier each rank sums
+//     every rank's partial of its share of the outputs through distributed
+//     shared memory in rank order (deterministic), applies 1/C and the
+//     activation to the f32 sum and stores once: one launch, no scratch.
+//   * the epilogue passes the band through shared memory (rows padded so a
+//     warp's scatter hits 32 banks), so the stores go to one displacement
+//     plane at a time, up to 16 bytes a thread, coalesced along W. The
+//     large dimension of the grid is on gridDim.x: no batch limit.
+// f32 inputs keep the same tiles and fragment layout, with the products as
+// CUDA-core FMAs (fma_16x8x16): exact f32, run by the checks only.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int TH = 8;   // output rows per block
-constexpr int TW = 32;  // output columns per block: one warp per row
-constexpr int CC = 8;   // channels staged per pass
+using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
 template <typename T>
@@ -64,7 +89,7 @@ __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
 }
 template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16(v);
 }
 template <>
@@ -72,102 +97,628 @@ __device__ __forceinline__ __half from_f32<__half>(float v) {
   return __float2half(v);
 }
 
+// ---------------------------------------------------------------------------
+// PTX: ldmatrix, mma.sync, cp.async
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t r[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// c (the lane's four f32 of a 16x8 tile) += A (16x16) . B (16x8).
+template <typename T>
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
+                                    uint32_t b0, uint32_t b1);
+template <>
+__device__ __forceinline__ void mma<bf16>(float c[4], const uint32_t a[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+template <>
+__device__ __forceinline__ void mma<__half>(float c[4], const uint32_t a[4],
+                                            uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One copy of `bytes` (4, 8 or 16) from global to shared memory; zeros
+// where !valid (src is then not read, but must be a valid address).
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
+                                         int bytes, bool valid) {
+  const int src = valid ? bytes : 0;
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_u32(smem)),
+                 "l"(gmem), "r"(src)
+                 : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                     smem_u32(smem)),
+                 "l"(gmem), "r"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_u32(smem)),
+                 "l"(gmem), "r"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's cp.async groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x / d for 0 <= x < 2^32 / d by one multiply-high (m = ceil(2^32 / d),
+// which needs d > 1; d = 1 returns x), the magic number made on the host:
+// the tiling's runtime divisors in the staging and epilogue loops.
+struct FastDiv {
+  uint32_t m;
+  int one;
+  __device__ __forceinline__ int div(int x) const {
+    return one ? x : (int)__umulhi((uint32_t)x, m);
+  }
+};
+
+inline FastDiv fast_div(int d) {
+  FastDiv f;
+  f.m = d > 1 ? (uint32_t)((0x100000000ull + d - 1) / d) : 0u;
+  f.one = d == 1;
+  return f;
+}
+
+// A thread's share of staging rows of `cols` elements (cols % v == 0) into
+// shared memory, v elements a copy, worked out once a block: the vector
+// column (t % (cols / v)) * v and the rows t / (cols / v), t / (cols / v) +
+// step, ... with step = blockDim.x / (cols / v); gx0 is the global x of
+// column 0, and cok whether this thread's column lies in [0, W).
+struct StageMap {
+  int col, rho0, step, bytes;
+  bool on, cok;
+};
+
+template <typename T>
+__device__ __forceinline__ StageMap stage_map(int cols, int v, int gx0,
+                                              int W) {
+  StageMap m;
+  const int vpr = cols / v, t = threadIdx.x;
+  m.step = blockDim.x / vpr;
+  m.on = t < m.step * vpr;
+  m.col = (t % vpr) * v;
+  m.rho0 = t / vpr;
+  m.cok = gx0 + m.col >= 0 && gx0 + m.col < W;
+  m.bytes = v * (int)sizeof(T);
+  return m;
+}
+
+// Stage `rows` rows by the map: row(rho, src, dst) gives row rho's global
+// start at column 0 (nullptr: a zero row) and its shared start (nullptr:
+// leave the row). Copies of 4 bytes or more go by cp.async (zero-filled
+// outside the image); single 2-byte elements (odd W) by plain loads, eight
+// in flight a thread, then plain stores.
+template <typename T, typename Row>
+__device__ __forceinline__ void stage_rows(const StageMap& m, int rows,
+                                           const T* any, Row row) {
+  if (!m.on) return;
+  if (m.bytes >= 4) {
+    for (int rho = m.rho0; rho < rows; rho += m.step) {
+      const T* src;
+      T* dst;
+      row(rho, src, dst);
+      if (dst == nullptr) continue;
+      const bool ok = m.cok && src != nullptr;
+      cp_async(dst + m.col, ok ? src + m.col : any, m.bytes, ok);
+    }
+  } else {
+    constexpr int B = 8;
+    for (int rho0 = m.rho0; rho0 < rows; rho0 += B * m.step) {
+      T val[B];
+      T* out[B];
+#pragma unroll
+      for (int u = 0; u < B; ++u) {
+        const int rho = rho0 + u * m.step;
+        out[u] = nullptr;
+        val[u] = from_f32<T>(0.f);
+        if (rho < rows) {
+          const T* src;
+          T* dst;
+          row(rho, src, dst);
+          if (dst != nullptr) {
+            out[u] = dst + m.col;
+            if (m.cok && src != nullptr) val[u] = src[m.col];
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < B; ++u)
+        if (out[u] != nullptr) *out[u] = val[u];
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t bits(float v) {
+  return __float_as_uint(v);
+}
+__device__ __forceinline__ uint32_t bits(bf16 v) {
+  return __bfloat16_as_ushort(v);
+}
+__device__ __forceinline__ uint32_t bits(__half v) {
+  return __half_as_ushort(v);
+}
+
+// Store n (1, 2, 4 or 8; at most 16 bytes) consecutive values v[0..n),
+// cast to T, in one access (dst aligned to it).
+template <typename T>
+__device__ __forceinline__ void store_vec(T* dst, const float* v, int n) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = sizeof(T) == 4
+               ? bits(from_f32<T>(v[i]))
+               : bits(from_f32<T>(v[2 * i])) |
+                     (bits(from_f32<T>(v[2 * i + 1])) << 16);
+  const int words = n * (int)sizeof(T) / 4;
+  if (words == 4)
+    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  else if (words == 2)
+    *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+  else if (words == 1)
+    *reinterpret_cast<uint32_t*>(dst) = w[0];
+  else
+    *dst = from_f32<T>(v[0]);
+}
+
+// Fragments from shared memory for mma.sync m16n8k16 (lane l; the four 8x8
+// matrices of an .x4 take their row addresses from lanes 0-7, 8-15, 16-23,
+// 24-31). A is 16 (rows) x 16 (k), B is 16 (k) x 8 (n) a tile.
+// A(r, k) at base[r * ld + k]:
+template <typename T>
+__device__ __forceinline__ void frag_a_rows(uint32_t a[4], const T* base,
+                                            int ld) {
+  const int l = threadIdx.x & 31;
+  ldsm_x4(a, base + (l & 15) * ld + (l >> 4) * 8);
+}
+// A(r, k) at base[k * ld + r]:
+template <typename T>
+__device__ __forceinline__ void frag_a_cols(uint32_t a[4], const T* base,
+                                            int ld) {
+  const int l = threadIdx.x & 31;
+  ldsm_x4_t(a, base + ((l & 7) + (l >> 4) * 8) * ld + ((l >> 3) & 1) * 8);
+}
+// Two n8 tiles (b[0..1]: n 0-7, b[2..3]: n 8-15), B(k, n) at base[k*ld + n]:
+template <typename T>
+__device__ __forceinline__ void frag_b2_krows(uint32_t b[4], const T* base,
+                                              int ld) {
+  const int l = threadIdx.x & 31;
+  ldsm_x4_t(b, base + (l & 15) * ld + (l >> 4) * 8);
+}
+// One n8 tile, B(k, n) at base[k * ld + n] (lanes 0-15 address):
+template <typename T>
+__device__ __forceinline__ void frag_b1_krows(uint32_t b[2], const T* base,
+                                              int ld) {
+  const int l = threadIdx.x & 31;
+  ldsm_x2_t(b, base + (l & 15) * ld);
+}
+// Two n8 tiles, B(k, n) at base[n * ld + k]:
+template <typename T>
+__device__ __forceinline__ void frag_b2_nrows(uint32_t b[4], const T* base,
+                                              int ld) {
+  const int l = threadIdx.x & 31;
+  ldsm_x4(b, base + ((l & 7) + (l >> 4) * 8) * ld + ((l >> 3) & 1) * 8);
+}
+
+// The f32 counterpart of one mma on the CUDA cores, in its fragment layout:
+// c += A . B with A(r, k) = a[r * ar + k * ak], B(k, n) = b[k * bk + n * bn],
+// lane (g, t) = (l / 4, l % 4) holding rows g, g + 8 x columns 2t, 2t + 1.
+__device__ __forceinline__ void fma_16x8x16(float c[4], const float* a,
+                                            int ar, int ak, const float* b,
+                                            int bk, int bn) {
+  const int l = threadIdx.x & 31;
+  const float* a0 = a + (l >> 2) * ar;
+  const float* a1 = a0 + 8 * ar;
+  const float* b0 = b + 2 * (l & 3) * bn;
+  const float* b1 = b0 + bn;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const float x0 = a0[k * ak], x1 = a1[k * ak];
+    const float y0 = b0[k * bk], y1 = b1[k * bk];
+    c[0] = fmaf(x0, y0, c[0]);
+    c[1] = fmaf(x0, y1, c[1]);
+    c[2] = fmaf(x1, y0, c[2]);
+    c[3] = fmaf(x1, y1, c[3]);
+  }
+}
+
+// A shared-memory row pitch (elements) for ldmatrix: a multiple of 8 whose
+// byte pitch (2-byte types) is an odd multiple of 16, so the eight rows of
+// an 8x8 matrix fall on distinct bank groups. Mirrored by
+// ops/correlation.py::_pad_ld.
+__host__ __device__ constexpr int pad_ld(int n) {
+  return ((n + 7) / 8) % 2 == 0 ? (n + 7) / 8 * 8 + 8 : (n + 7) / 8 * 8;
+}
+
+// ---------------------------------------------------------------------------
+// The forward
+
+constexpr int FP = 4;     // window origin x0 - FP (FP >= md)
+constexpr int FKC = 32;   // channels a staged chunk: two k16 steps
+constexpr int GW = 3;     // dy rows a warp
+constexpr int FWD_MAX_WARPS = 8;
+constexpr int MAX_CLUSTER = 8;
+// warps a block at least: those past the warp tasks only stage and store
+constexpr int MIN_WARPS = 4;
+
+__host__ __device__ constexpr int block_warps(int tasks) {
+  return tasks > MIN_WARPS ? tasks : MIN_WARPS;
+}
+
+// The plan (ops/correlation.py::CorrPlan) and what the launcher derives.
+struct FwdArgs {
+  const void* f1;
+  const void* f2;
+  void* out;
+  int C, H, W;
+  float inv_c, leaky;
+  int use_leaky;
+  int th, wj, ndg, cs, kc;      // the plan (cs = ceil(C / kc))
+  int ytiles, xtiles, dyblocks;
+  int v1, v2;                   // copy widths (elements) of f1 and f2
+  int vo;                       // store width (elements) of out
+  FastDiv by_th, by_r2;         // th and th + GW*ndg - 1
+};
+
+__host__ __device__ constexpr int fwd_stage_elems(int th, int wj, int ndg) {
+  return FKC * (pad_ld(th * 16 * wj) +
+                pad_ld((th + GW * ndg - 1) * (16 * wj + 2 * FP)));
+}
+
+// The band buffer's row pitch (floats): at least tx, with th * pitch = 4
+// (mod 32), so that a warp's scatter of its accumulators (lanes (g, t):
+// row dx*th + r moves by 2*th rows with t and -th with g, column g) hits 32
+// distinct banks; th = 8 allows no such pitch and takes 8 (mod 32), two
+// ways. Mirrored by ops/correlation.py::_band_pitch.
+__host__ __device__ constexpr int band_pitch(int th, int tx) {
+  for (int bp = tx; bp < tx + 32; ++bp)
+    if (th * bp % 32 == 4) return bp;
+  for (int bp = tx; bp < tx + 32; ++bp)
+    if (th * bp % 32 == 8) return bp;
+  return tx;
+}
+
+// Bytes of dynamic shared memory: two stages (one when the block's channels
+// fit one chunk), or the f32 band buffer of the epilogue that aliases them.
+__host__ __device__ constexpr int fwd_smem_bytes(int esize, int md, int th,
+                                                 int wj, int ndg, int kc) {
+  const int stages = kc > FKC ? 2 : 1;
+  const int staged = stages * fwd_stage_elems(th, wj, ndg) * esize;
+  const int band =
+      GW * ndg * (2 * md + 1) * th * band_pitch(th, 16 * wj) * 4;
+  return staged > band ? staged : band;
+}
+
+// acc[s][nt] += A . B over one k16 step for the warp's dy rows s < rows:
+// A at a (A(x, k) = a[k * lda + x]), the window of dy row s at b + s * sw
+// (B(k, n) = b[k * ldb + n]).
+template <typename T>
+__device__ __forceinline__ void fwd_step(float (&acc)[GW][3][4], const T* a,
+                                         int lda, const T* b, int ldb, int sw,
+                                         int rows) {
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int s = 0; s < GW; ++s) {
+      if (s >= rows) break;
+#pragma unroll
+      for (int nt = 0; nt < 3; ++nt)
+        fma_16x8x16(acc[s][nt], a, 1, lda, b + s * sw + 8 * nt, ldb, 1);
+    }
+  } else {
+    uint32_t af[4];
+    frag_a_cols(af, a, lda);
+#pragma unroll
+    for (int s = 0; s < GW; ++s) {
+      if (s >= rows) break;
+      uint32_t bf[4], bl[2];
+      frag_b2_krows(bf, b + s * sw, ldb);
+      frag_b1_krows(bl, b + s * sw + 16, ldb);
+      mma<T>(acc[s][0], af, bf[0], bf[1]);
+      mma<T>(acc[s][1], af, bf[2], bf[3]);
+      mma<T>(acc[s][2], af, bl[0], bl[1]);
+    }
+  }
+}
+
+// Block blockIdx.x = (((n * ytiles + yt) * xtiles + xt) * dyblocks + dyb) *
+// cs + rank: output rows yt*th.., columns xt*16*wj.., dy indices from
+// dyb*ndg*3, channels rank*kc.. (the rank fastest: a cluster is cs
+// consecutive blocks). Warp w: row w % th, column tile (w / th) % wj, dy
+// group w / (th * wj).
 template <typename T, int MD>
-__global__ void __launch_bounds__(TH * TW)
-    corr_fwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2,
-                    T* __restrict__ out, int C, int H, int W, float inv_c,
-                    float leaky, int use_leaky) {
+__global__ void __launch_bounds__(FWD_MAX_WARPS * 32, 3)
+    corr_fwd_kernel(const FwdArgs p) {
   constexpr int D = 2 * MD + 1;
-  constexpr int SH = TH + 2 * MD;
-  constexpr int SW = TW + 2 * MD;
-  __shared__ float s1[CC][TH][TW];
-  __shared__ float s2[CC][SH][SW];
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* stage = reinterpret_cast<T*>(smem);
+  float* band = reinterpret_cast<float*>(smem);
 
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * TW + tx;
-  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
-  const int x = x0 + tx, y = y0 + ty;
-  const bool inside = y < H && x < W;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int TX = 16 * p.wj, SW2 = TX + 2 * FP;
+  const int R2 = p.th + GW * p.ndg - 1;
+  const int LD1 = pad_ld(p.th * TX), LD2 = pad_ld(R2 * SW2);
+  const int stage_elems = FKC * (LD1 + LD2);
+  const int BP = band_pitch(p.th, TX);
+  const FastDiv by_th = p.by_th, by_r2 = p.by_r2;
+
+  // 32-bit decode: the grid has fewer than 2^32 blocks
+  uint32_t b = blockIdx.x;
+  const int rank = (int)(b % (uint32_t)p.cs);
+  b /= (uint32_t)p.cs;
+  const int dyb = (int)(b % (uint32_t)p.dyblocks);
+  b /= (uint32_t)p.dyblocks;
+  const int xt = (int)(b % (uint32_t)p.xtiles);
+  b /= (uint32_t)p.xtiles;
+  const int yt = (int)(b % (uint32_t)p.ytiles);
+  const int n = (int)(b / (uint32_t)p.ytiles);
+  const int x0 = xt * TX, y0 = yt * p.th, d0 = dyb * p.ndg * GW;
+  const int c_beg = rank * p.kc, c_end = min(p.C, c_beg + p.kc);
+  const int nch = c_end > c_beg ? (c_end - c_beg + FKC - 1) / FKC : 0;
+  const int H = p.H, W = p.W;
   const size_t plane = (size_t)H * W;
-  const T* f1n = f1 + (size_t)blockIdx.z * C * plane;
-  const T* f2n = f2 + (size_t)blockIdx.z * C * plane;
+  const T* f1n = static_cast<const T*>(p.f1) + (size_t)n * p.C * plane;
+  const T* f2n = static_cast<const T*>(p.f2) + (size_t)n * p.C * plane;
 
-  float acc[D * D];
-#pragma unroll
-  for (int t = 0; t < D * D; ++t) acc[t] = 0.f;
+  // chunk ch: s1[k][r][x] = f1[c, y0+r, x0+x], s2[k][q][col] = f2[c,
+  // y0+d0-MD+q, x0-FP+col], c = c_beg + ch*FKC + k; zero outside the image
+  // and past the rank's channels
+  auto load = [&](int ch, T* s1) {
+    T* s2 = s1 + FKC * LD1;
+    const int cb = c_beg + ch * FKC;
+    // the maps are made a chunk (one or two a block), not kept in registers
+    stage_rows<T>(stage_map<T>(TX, p.v1, x0, W), FKC * p.th, f1n,
+                  [&](int rho, const T*& src, T*& dst) {
+                    const int k = by_th.div(rho), r = rho - k * p.th;
+                    const int c = cb + k, y = y0 + r;
+                    src = c < c_end && y < H
+                              ? f1n + c * plane + (size_t)y * W + x0
+                              : nullptr;
+                    dst = s1 + k * LD1 + r * TX;
+                  });
+    stage_rows<T>(stage_map<T>(SW2, p.v2, x0 - FP, W), FKC * R2, f2n,
+                  [&](int rho, const T*& src, T*& dst) {
+                    const int k = by_r2.div(rho), q = rho - k * R2;
+                    const int c = cb + k, gy = y0 + d0 - MD + q;
+                    src = c < c_end && gy >= 0 && gy < H
+                              ? f2n + c * plane + (size_t)gy * W + x0 - FP
+                              : nullptr;
+                    dst = s2 + k * LD2 + q * SW2;
+                  });
+  };
 
-  for (int c0 = 0; c0 < C; c0 += CC) {
-    const int nc = min(CC, C - c0);
+  const int r = warp % p.th, j = (warp / p.th) % p.wj;
+  const int dl0 = (warp / (p.th * p.wj)) * GW;  // the warp's first local dy
+  const int rows = min(GW, D - d0 - dl0);       // its dy rows in range
+  const bool live = warp < p.th * p.wj * p.ndg && rows > 0 && y0 + r < H &&
+                    x0 + 16 * j < W;
+
+  float acc[GW][3][4];
 #pragma unroll
-    for (int cc = 0; cc < CC; ++cc)
-      s1[cc][ty][tx] = (cc < nc && inside)
-                           ? to_f32(f1n[(c0 + cc) * plane + (size_t)y * W + x])
-                           : 0.f;
-    for (int i = tid; i < CC * SH * SW; i += TH * TW) {
-      const int cc = i / (SH * SW);
-      const int r = (i / SW) % SH;
-      const int col = i % SW;
-      const int gy = y0 - MD + r, gx = x0 - MD + col;
-      float v = 0.f;
-      if (cc < nc && gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = to_f32(f2n[(c0 + cc) * plane + (size_t)gy * W + gx]);
-      s2[cc][r][col] = v;
-    }
-    __syncthreads();
-    for (int cc = 0; cc < nc; ++cc) {
-      const float a = s1[cc][ty][tx];
+  for (int s = 0; s < GW; ++s)
 #pragma unroll
-      for (int dy = 0; dy < D; ++dy)
+    for (int nt = 0; nt < 3; ++nt)
 #pragma unroll
-        for (int dx = 0; dx < D; ++dx)
-          acc[dy * D + dx] =
-              fmaf(a, s2[cc][ty + dy][tx + dx], acc[dy * D + dx]);
-    }
-    __syncthreads();
+      for (int e = 0; e < 4; ++e) acc[s][nt][e] = 0.f;
+
+  if (nch > 0) {
+    load(0, stage);
+    cp_async_commit();
   }
-
-  if (!inside) return;
-  T* o = out + (size_t)blockIdx.z * D * D * plane + (size_t)y * W + x;
+  for (int ch = 0; ch < nch; ++ch) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk ch landed; every warp is done with ch - 1
+    if (ch + 1 < nch) {
+      load(ch + 1, stage + ((ch + 1) & 1) * stage_elems);
+      cp_async_commit();
+    }
+    if (live) {
+      const T* s1 = stage + (ch & 1) * stage_elems;
+      const T* s2 = s1 + FKC * LD1;
+      const int kn = c_end - (c_beg + ch * FKC);  // channels left
 #pragma unroll
-  for (int t = 0; t < D * D; ++t) {
-    float v = acc[t] * inv_c;
-    if (use_leaky) v = v >= 0.f ? v : leaky * v;
-    o[t * plane] = from_f32<T>(v);
+      for (int ks = 0; ks < FKC / 16; ++ks)
+        if (ks * 16 < kn)
+          fwd_step<T>(acc, s1 + ks * 16 * LD1 + r * TX + 16 * j, LD1,
+                      s2 + ks * 16 * LD2 + (r + dl0) * SW2 + 16 * j, LD2, SW2,
+                      rows);
+    }
   }
+  __syncthreads();  // the band buffer aliases the stages
+
+  // band[(dl*D + dx)*th + r][x] (rows BP apart): dy row d0 + dl, dx, output
+  // (y0 + r, x0 + x)
+  if (live) {
+    const int gq = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int s = 0; s < GW; ++s) {
+      if (s >= rows) break;
+#pragma unroll
+      for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = gq + 8 * (e >> 1);
+          const int dx = 8 * nt + 2 * t4 + (e & 1) - FP - m + MD;
+          if (dx >= 0 && dx < D)
+            band[(((dl0 + s) * D + dx) * p.th + r) * BP + 16 * j + m] =
+                acc[s][nt][e];
+        }
+    }
+  }
+  // the epilogue: rank q of cs takes band rows [q R / cs, (q+1) R / cs),
+  // sums them over every rank in rank order, and stores p.vo outputs a
+  // thread and access
+  const int R = GW * p.ndg * D * p.th;
+  T* out = static_cast<T*>(p.out);
+  cg::cluster_group cluster = cg::this_cluster();
+  if (p.cs > 1)
+    cluster.sync();  // every rank's partials are in its shared memory
+  else
+    __syncthreads();
+  const int vpr = TX / p.vo, step = nthr / vpr;
+  if (tid < step * vpr) {
+    const int x = (tid % vpr) * p.vo, gx = x0 + x;
+    const int hi = (rank + 1) * R / p.cs;
+    for (int row = rank * R / p.cs + tid / vpr; row < hi; row += step) {
+      const int t = by_th.div(row), y = y0 + row - t * p.th;
+      const int d = d0 + t / D, dx = t % D;
+      if (d >= D || y >= H || gx >= W) continue;
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = 0.f;
+#pragma unroll
+      for (int q = 0; q < MAX_CLUSTER; ++q) {
+        if (q >= p.cs) break;
+        const float* src = (p.cs > 1 ? cluster.map_shared_rank(band, q)
+                                     : band) + row * BP + x;
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (u < p.vo) v[u] += src[u];
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        v[u] *= p.inv_c;
+        if (p.use_leaky) v[u] = v[u] >= 0.f ? v[u] : p.leaky * v[u];
+      }
+      store_vec(out + ((size_t)n * D * D + d * D + dx) * plane +
+                    (size_t)y * W + gx,
+                v, p.vo);
+    }
+  }
+  if (p.cs > 1) cluster.sync();  // no block leaves while another reads it
+}
+
+// The widest copy (elements, a power of 2 up to max_elems) that keeps every
+// staged vector inside or outside the image and its global address aligned:
+// W, the batch stride and the base address all multiples of it.
+int copy_width(const void* ptr, long long batch_stride, int w, int esize,
+               int max_elems) {
+  int v = max_elems;
+  while (v > 1 && (w % v || batch_stride % v ||
+                   reinterpret_cast<uintptr_t>(ptr) % (v * esize)))
+    v >>= 1;
+  return v;
+}
+
+template <typename K>
+int allow_smem(K kernel, int bytes, int& allowed) {
+  if (bytes <= 48 * 1024 || bytes <= allowed) return 0;
+  const int e = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (!e) allowed = bytes;
+  return e;
+}
+
+template <typename T, int MD>
+int launch_fwd_md(FwdArgs a, int n, cudaStream_t stream) {
+  static int allowed = 0;
+  const int smem =
+      fwd_smem_bytes((int)sizeof(T), MD, a.th, a.wj, a.ndg, a.kc);
+  if (int e = allow_smem(corr_fwd_kernel<T, MD>, smem, allowed)) return e;
+  const long long blocks =
+      (long long)n * a.ytiles * a.xtiles * a.dyblocks * a.cs;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(32 * block_warps(a.th * a.wj * a.ndg));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = a.cs > 1 ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, corr_fwd_kernel<T, MD>, a);
+  return e ? (int)e : (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* f1, const void* f2, void* out, int n, int c, int h,
-           int w, int md, float leaky, int use_leaky, cudaStream_t stream) {
-  const dim3 block(TW, TH);
-  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
-  const float inv_c = (float)(1.0 / c);
-  const T* a = static_cast<const T*>(f1);
-  const T* b = static_cast<const T*>(f2);
-  T* o = static_cast<T*>(out);
+int launch_fwd(const void* f1, const void* f2, void* out, int n, int c,
+               int h, int w, int md, float leaky, int use_leaky, int th,
+               int wj, int ndg, int kc, cudaStream_t stream) {
+  const int D = 2 * md + 1;
+  FwdArgs a;
+  a.f1 = f1;
+  a.f2 = f2;
+  a.out = out;
+  a.C = c;
+  a.H = h;
+  a.W = w;
+  a.inv_c = (float)(1.0 / c);
+  a.leaky = leaky;
+  a.use_leaky = use_leaky;
+  a.th = th;
+  a.wj = wj;
+  a.ndg = ndg;
+  a.kc = kc;
+  a.cs = (c + kc - 1) / kc;
+  a.ytiles = (h + th - 1) / th;
+  a.xtiles = (w + 16 * wj - 1) / (16 * wj);
+  a.dyblocks = ((D + GW - 1) / GW + ndg - 1) / ndg;
+  const long long bstride = (long long)c * h * w;
+  const int es = (int)sizeof(T);
+  a.v1 = copy_width(f1, bstride, w, es, 16 / es);
+  a.v2 = copy_width(f2, bstride, w, es, FP);
+  a.vo = copy_width(out, (long long)D * D * h * w, w, es, 16 / es);
+  a.by_th = fast_div(th);
+  a.by_r2 = fast_div(th + GW * ndg - 1);
   switch (md) {
     case 1:
-      corr_fwd_kernel<T, 1><<<grid, block, 0, stream>>>(a, b, o, c, h, w,
-                                                        inv_c, leaky, use_leaky);
-      break;
+      return launch_fwd_md<T, 1>(a, n, stream);
     case 2:
-      corr_fwd_kernel<T, 2><<<grid, block, 0, stream>>>(a, b, o, c, h, w,
-                                                        inv_c, leaky, use_leaky);
-      break;
+      return launch_fwd_md<T, 2>(a, n, stream);
     case 3:
-      corr_fwd_kernel<T, 3><<<grid, block, 0, stream>>>(a, b, o, c, h, w,
-                                                        inv_c, leaky, use_leaky);
-      break;
+      return launch_fwd_md<T, 3>(a, n, stream);
     case 4:
-      corr_fwd_kernel<T, 4><<<grid, block, 0, stream>>>(a, b, o, c, h, w,
-                                                        inv_c, leaky, use_leaky);
-      break;
+      return launch_fwd_md<T, 4>(a, n, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
-
 
 // ---------------------------------------------------------------------------
 // The gradients of the cost volume.
@@ -183,126 +734,48 @@ int launch(const void* f1, const void* f2, void* out, int n, int c, int h,
 // with t = (dy+md)(2md+1) + (dx+md), f2 zero outside the image, and every
 // df2 term whose source pixel (y-dy, x-dx) lies outside the image zero: the
 // gather form of the scatter that the forward's transpose is, so no
-// atomics.
-//
-// corr_bwd_f1_kernel replaces _corr_bwd_f1_kernel (NHWC) and
-// _hm_bwd_f1_kernel (H-major); corr_bwd_f2_kernel replaces
-// _corr_bwd_f2_kernel and _hm_bwd_f2_kernel (maskflownet_tpu/ops/pallas/
-// correlation.py). As for the forward, the two TPU layout families exist for
-// the (8, 128) lane tiling; here one NCHW body serves every level.
+// atomics. g may be a channel slice of a larger tensor (the gradient of the
+// concatenation each cost volume enters): its images lie g_stride elements
+// apart, each a dense (D*D, H, W) block; out is dense.
 //
 // What bounds them on an H100: bytes. Each reads g (D*D values a pixel),
 // out (D*D, with the LeakyReLU) and one feature map (C), and writes one
 // gradient (C), against 2*C*D*D flops a pixel: at most ~C/2 flops a byte in
 // bf16, below the ridge of either the tensor cores or the CUDA cores at the
-// fine levels. What the design does about it:
-//   * the TPU kernels carry the sum over a sequential dy grid axis in a
-//     revisited output block; blocks on the H100 run in no order, so the
-//     whole displacement loop lives inside one block;
-//   * unlike the forward, the sum runs over displacements, not channels, so
-//     a block owns a chunk of BCC channels outright: grid (W tiles, H
-//     tiles, N * ceil(C / BCC)), no reduction across blocks, each thread
-//     keeps BCC f32 accumulators (not D*D), and the channel chunks give the
-//     coarse levels blocks to fill the card (200 at level 6, batch 8, where
-//     the forward launches 8);
-//   * the feature halo (TH+2md) x (TW+2md) of the block's BCC channels is
-//     staged in shared memory (as f32) once and serves every tap;
-//   * the leaky rescale is fused into the read of g: g and out are read
-//     together and only g' is kept. In df1 a pixel's g' serves only that
-//     pixel, so it goes to registers, one dy row of D taps at a time; in
-//     df2 a pixel gathers g' of its neighbours, so one dy row of taps over
-//     the tile plus its dx halo is staged in shared memory;
-//   * each df value is written once, after the f32 sum over all D*D taps,
-//     cast on store, a warp writing 32 consecutive x (coalesced along W).
-// g and out are read once per channel chunk (ceil(C / BCC) times), mostly
-// from L2. This is the simple first version: no TMA, no wgmma.
+// fine levels.
+//
+// corr_bwd_f1_kernel replaces _corr_bwd_f1_kernel :104 (NHWC) and
+// _hm_bwd_f1_kernel :232 (H-major) of maskflownet_tpu/ops/pallas/
+// correlation.py. It is the first version's design: a block owns BCC = 8
+// channels of a TH x TW = 8 x 32 tile (grid (W tiles, H tiles, N *
+// ceil(C / BCC))), stages the f2 halo of its channels in shared memory as
+// f32 once, reads g' of its own pixels into registers one dy row of taps at
+// a time, and writes each df1 value once, coalesced along W. g and out are
+// read once per channel chunk, mostly from L2.
 // ---------------------------------------------------------------------------
 
-constexpr int BCC = 8;  // channels owned by one backward block
+constexpr int TH = 8;   // f1 gradient: rows a block
+constexpr int TW = 32;  // f1 gradient: columns a block, one warp a row
+constexpr int BCC = 8;  // f1 gradient: channels a block
 
-// g' at flat index i: the cotangent rescaled by the LeakyReLU's derivative,
-// read off the sign of the saved output (out == nullptr: the identity).
+// g' from g[gi] and out[oi] (out == nullptr: the identity).
 template <typename T>
 __device__ __forceinline__ float grad_in(const T* __restrict__ g,
-                                         const T* __restrict__ out, size_t i,
-                                         float leaky) {
-  const float v = to_f32(g[i]);
-  return (out == nullptr || to_f32(out[i]) >= 0.f) ? v : leaky * v;
-}
-
-// Stage channels [c0, c0 + BCC) of the (TH+2MD) x (TW+2MD) halo around the
-// block's tile, zero outside the image and past C.
-template <typename T, int MD>
-__device__ __forceinline__ void stage_halo(
-    float (&s)[BCC][TH + 2 * MD][TW + 2 * MD], const T* __restrict__ fn,
-    int nc, int H, int W, int y0, int x0, int tid) {
-  constexpr int SH = TH + 2 * MD, SW = TW + 2 * MD;
-  const size_t plane = (size_t)H * W;
-  for (int i = tid; i < BCC * SH * SW; i += TH * TW) {
-    const int cc = i / (SH * SW);
-    const int r = (i / SW) % SH;
-    const int col = i % SW;
-    const int gy = y0 - MD + r, gx = x0 - MD + col;
-    float v = 0.f;
-    if (cc < nc && gy >= 0 && gy < H && gx >= 0 && gx < W)
-      v = to_f32(fn[cc * plane + (size_t)gy * W + gx]);
-    s[cc][r][col] = v;
-  }
+                                         const T* __restrict__ out, size_t gi,
+                                         size_t oi, float leaky) {
+  const float v = to_f32(g[gi]);
+  return (out == nullptr || to_f32(out[oi]) >= 0.f) ? v : leaky * v;
 }
 
 template <typename T, int MD>
 __global__ void __launch_bounds__(TH * TW)
     corr_bwd_f1_kernel(const T* __restrict__ g, const T* __restrict__ out,
-                       const T* __restrict__ f2, T* __restrict__ df1, int C,
-                       int H, int W, int chunks, float inv_c, float leaky) {
+                       const T* __restrict__ f2, T* __restrict__ df1,
+                       long long g_stride, int C, int H, int W, int chunks,
+                       float inv_c, float leaky) {
   constexpr int D = 2 * MD + 1;
-  __shared__ float s2[BCC][TH + 2 * MD][TW + 2 * MD];
-
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
-  const int x = x0 + tx, y = y0 + ty;
-  const int n = blockIdx.z / chunks, c0 = (blockIdx.z % chunks) * BCC;
-  const int nc = min(BCC, C - c0);
-  const size_t plane = (size_t)H * W;
-
-  stage_halo<T, MD>(s2, f2 + ((size_t)n * C + c0) * plane, nc, H, W, y0, x0,
-                    ty * TW + tx);
-  __syncthreads();
-  if (y >= H || x >= W) return;
-
-  float acc[BCC];
-#pragma unroll
-  for (int cc = 0; cc < BCC; ++cc) acc[cc] = 0.f;
-  const size_t pix = (size_t)n * D * D * plane + (size_t)y * W + x;
-#pragma unroll
-  for (int dy = 0; dy < D; ++dy) {
-    float gv[D];
-#pragma unroll
-    for (int dx = 0; dx < D; ++dx)
-      gv[dx] = grad_in(g, out, pix + (dy * D + dx) * plane, leaky);
-#pragma unroll
-    for (int cc = 0; cc < BCC; ++cc)
-#pragma unroll
-      for (int dx = 0; dx < D; ++dx)
-        acc[cc] = fmaf(gv[dx], s2[cc][ty + dy][tx + dx], acc[cc]);
-  }
-  T* o = df1 + ((size_t)n * C + c0) * plane + (size_t)y * W + x;
-#pragma unroll
-  for (int cc = 0; cc < BCC; ++cc)
-    if (cc < nc) o[cc * plane] = from_f32<T>(acc[cc] * inv_c);
-}
-
-template <typename T, int MD>
-__global__ void __launch_bounds__(TH * TW)
-    corr_bwd_f2_kernel(const T* __restrict__ g, const T* __restrict__ out,
-                       const T* __restrict__ f1, T* __restrict__ df2, int C,
-                       int H, int W, int chunks, float inv_c, float leaky) {
-  constexpr int D = 2 * MD + 1;
-  constexpr int SW = TW + 2 * MD;
-  // f1 halo: s1[cc][r][col] = f1[c0+cc, y0-MD+r, x0-MD+col]
-  __shared__ float s1[BCC][TH + 2 * MD][SW];
-  // one tap row dy: sg[dx][r][col] = g'[dy*D+dx, y0-(dy-MD)+r, x0-MD+col]
-  __shared__ float sg[D][TH][SW];
+  constexpr int SH = TH + 2 * MD, SW = TW + 2 * MD;
+  __shared__ float s2[BCC][SH][SW];
 
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * TW + tx;
@@ -311,83 +784,75 @@ __global__ void __launch_bounds__(TH * TW)
   const int n = blockIdx.z / chunks, c0 = (blockIdx.z % chunks) * BCC;
   const int nc = min(BCC, C - c0);
   const size_t plane = (size_t)H * W;
-  const size_t gn = (size_t)n * D * D * plane;
 
-  stage_halo<T, MD>(s1, f1 + ((size_t)n * C + c0) * plane, nc, H, W, y0, x0,
-                    tid);
+  const T* fn = f2 + ((size_t)n * C + c0) * plane;
+  for (int i = tid; i < BCC * SH * SW; i += TH * TW) {
+    const int cc = i / (SH * SW);
+    const int r = (i / SW) % SH;
+    const int col = i % SW;
+    const int gy = y0 - MD + r, gx = x0 - MD + col;
+    float v = 0.f;
+    if (cc < nc && gy >= 0 && gy < H && gx >= 0 && gx < W)
+      v = to_f32(fn[cc * plane + (size_t)gy * W + gx]);
+    s2[cc][r][col] = v;
+  }
+  __syncthreads();
+  if (y >= H || x >= W) return;
+
   float acc[BCC];
 #pragma unroll
   for (int cc = 0; cc < BCC; ++cc) acc[cc] = 0.f;
-
+  const size_t pix = (size_t)y * W + x;
+  const size_t gp = (size_t)n * g_stride + pix;
+  const size_t op = (size_t)n * D * D * plane + pix;
+#pragma unroll
   for (int dy = 0; dy < D; ++dy) {
-    __syncthreads();  // the last row's reads are done (and s1 is staged)
-    for (int i = tid; i < D * TH * SW; i += TH * TW) {
-      const int dx = i / (TH * SW);
-      const int r = (i / SW) % TH;
-      const int col = i % SW;
-      const int gy = y0 - (dy - MD) + r, gx = x0 - MD + col;
-      float v = 0.f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = grad_in(g, out,
-                    gn + (dy * D + dx) * plane + (size_t)gy * W + gx, leaky);
-      sg[dx][r][col] = v;
-    }
-    __syncthreads();
-    // source pixel (y - (dy-MD), x - (dx-MD)): row ty of sg, row
-    // ty + 2MD - dy of s1, column tx + 2MD - dx of both
+    float gv[D];
 #pragma unroll
-    for (int dx = 0; dx < D; ++dx) {
-      const float gv = sg[dx][ty][tx + 2 * MD - dx];
+    for (int dx = 0; dx < D; ++dx)
+      gv[dx] = grad_in(g, out, gp + (dy * D + dx) * plane,
+                       op + (dy * D + dx) * plane, leaky);
 #pragma unroll
-      for (int cc = 0; cc < BCC; ++cc)
-        acc[cc] = fmaf(gv, s1[cc][ty + 2 * MD - dy][tx + 2 * MD - dx],
-                       acc[cc]);
-    }
+    for (int cc = 0; cc < BCC; ++cc)
+#pragma unroll
+      for (int dx = 0; dx < D; ++dx)
+        acc[cc] = fmaf(gv[dx], s2[cc][ty + dy][tx + dx], acc[cc]);
   }
-  if (y >= H || x >= W) return;
-  T* o = df2 + ((size_t)n * C + c0) * plane + (size_t)y * W + x;
+  T* o = df1 + ((size_t)n * C + c0) * plane + pix;
 #pragma unroll
   for (int cc = 0; cc < BCC; ++cc)
     if (cc < nc) o[cc * plane] = from_f32<T>(acc[cc] * inv_c);
 }
 
-// which: 1 = df1 (f is f2), 2 = df2 (f is f1).
-template <typename T, int MD>
-void launch_bwd_md(int which, const T* g, const T* out, const T* f, T* df,
-                   int n, int c, int h, int w, float leaky,
-                   cudaStream_t stream) {
+template <typename T>
+int launch_bwd_f1(const void* g, const void* out, const void* f2, void* df1,
+                  long long g_stride, int n, int c, int h, int w, int md,
+                  float leaky, cudaStream_t stream) {
   const int chunks = (c + BCC - 1) / BCC;
+  if ((long long)n * chunks > 65535) return (int)cudaErrorInvalidValue;
   const dim3 block(TW, TH);
   const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n * chunks);
   const float inv_c = (float)(1.0 / c);
-  if (which == 1)
-    corr_bwd_f1_kernel<T, MD><<<grid, block, 0, stream>>>(
-        g, out, f, df, c, h, w, chunks, inv_c, leaky);
-  else
-    corr_bwd_f2_kernel<T, MD><<<grid, block, 0, stream>>>(
-        g, out, f, df, c, h, w, chunks, inv_c, leaky);
-}
-
-template <typename T>
-int launch_bwd(int which, const void* g, const void* out, const void* f,
-               void* df, int n, int c, int h, int w, int md, float leaky,
-               cudaStream_t stream) {
   const T* gt = static_cast<const T*>(g);
   const T* ot = static_cast<const T*>(out);
-  const T* ft = static_cast<const T*>(f);
-  T* dt = static_cast<T*>(df);
+  const T* ft = static_cast<const T*>(f2);
+  T* dt = static_cast<T*>(df1);
   switch (md) {
     case 1:
-      launch_bwd_md<T, 1>(which, gt, ot, ft, dt, n, c, h, w, leaky, stream);
+      corr_bwd_f1_kernel<T, 1><<<grid, block, 0, stream>>>(
+          gt, ot, ft, dt, g_stride, c, h, w, chunks, inv_c, leaky);
       break;
     case 2:
-      launch_bwd_md<T, 2>(which, gt, ot, ft, dt, n, c, h, w, leaky, stream);
+      corr_bwd_f1_kernel<T, 2><<<grid, block, 0, stream>>>(
+          gt, ot, ft, dt, g_stride, c, h, w, chunks, inv_c, leaky);
       break;
     case 3:
-      launch_bwd_md<T, 3>(which, gt, ot, ft, dt, n, c, h, w, leaky, stream);
+      corr_bwd_f1_kernel<T, 3><<<grid, block, 0, stream>>>(
+          gt, ot, ft, dt, g_stride, c, h, w, chunks, inv_c, leaky);
       break;
     case 4:
-      launch_bwd_md<T, 4>(which, gt, ot, ft, dt, n, c, h, w, leaky, stream);
+      corr_bwd_f1_kernel<T, 4><<<grid, block, 0, stream>>>(
+          gt, ot, ft, dt, g_stride, c, h, w, chunks, inv_c, leaky);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -395,63 +860,460 @@ int launch_bwd(int which, const void* g, const void* out, const void* f,
   return (int)cudaGetLastError();
 }
 
-int bwd_entry(int which, const void* g, const void* out, const void* f,
-              void* df, int n, int c, int h, int w, int md, int dtype,
-              float leaky, void* stream) {
-  if (n <= 0 || c <= 0 || h <= 0 || w <= 0 ||
-      (long long)n * ((c + BCC - 1) / BCC) > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch_bwd<float>(which, g, out, f, df, n, c, h, w, md, leaky, s);
+// ---------------------------------------------------------------------------
+// corr_bwd_f2_kernel replaces _corr_bwd_f2_kernel :127 (NHWC) and
+// _hm_bwd_f2_kernel :253 (H-major) of maskflownet_tpu/ops/pallas/
+// correlation.py: the TPU kernels carry the sum over a sequential dy grid
+// axis in a revisited output block. What bounds it: as the forward, on
+// paper bytes (g and out are 81 planes each), in practice the instructions
+// and latency of each source row's staging and assembly (PERF.md §6).
+// The first version read g and out ceil(C / 8) times (a block owned 8
+// channels) and restaged one dy row of g' behind two barriers 9 times a
+// block. This design:
+//   * a band GEMM over source pixels on the tensor cores. Fix a source row
+//     ys and a tile of 16 target columns x0..; then df2[c, ys + dy', x0 +
+//     x] += sum_xs F[c, xs] M[x, xs], F = f1[c, ys, x0-8 : x0+24] (K = 32
+//     source pixels, two k16 steps) and M[x, xs] = g'[t(dy', x - xs), ys,
+//     xs] on the band |x - xs| <= md, zero off it. F is A (channels x
+//     K, ldmatrix), M is B (K x 16 targets, two n8 tiles). The window
+//     starts at x0 - 8, so the copies are 16 bytes where W % 8 == 0.
+//   * exact products in bf16/f16: M is assembled in shared memory from g
+//     split by the sign of the saved out, M+ (out >= 0) and M- (out < 0),
+//     both exact in the input type like f1; df2 = 1/C (M+ F + leaky M- F)
+//     in f32 from two MMAs. 0.1 * g is never rounded to bf16. A thread
+//     assembles one (x, tap) pair of the band for each reached tile, four
+//     tiles' loads in flight before their stores.
+//   * a block owns th target rows x 16*wj columns x cpb channels (a cap of
+//     64, lowered at the coarse levels so the grid fills the card; one warp
+//     a target row and column tile, its cpb / 16 m16 tiles of channels in
+//     f32 accumulators, at least 4 warps), so g and out are read
+//     ceil(C / cpb) times, and it loops over the th + 2md source rows that
+//     reach its targets: a ring of 3 staged rows, the next two rows' f1
+//     and g/out windows arriving by cp.async while the current one is
+//     assembled and multiplied, two barriers a row. f1's rows are staged
+//     once for th + 2md source rows, not 2md + 1 times a target row.
+//   * each df2 value is written once, after the f32 sum over every tap,
+//     two neighbouring columns a store where W is even. The grid comes
+//     from corr_plan, the large dimension on gridDim.x: no batch limit.
+// f32 inputs: one M = g' in f32 and CUDA-core FMAs in the same layout.
+// ---------------------------------------------------------------------------
+
+constexpr int BWD_MAX_WARPS = 4;
+constexpr int BST = 3;       // staged source rows a block: a ring
+constexpr int BK = 32;       // source pixels a target tile's K
+// the backward's window origin x0 - 8: 16-byte copies where W % 8 == 0;
+// the band k = x - dx' + 8 lies in [4, 27] of a tile's K
+constexpr int FP_BWD = 8;
+constexpr int LDM = BK + 8;  // M's row pitch (elements; 80 bytes in bf16)
+
+struct BwdArgs {
+  const void* g;
+  const void* out;
+  const void* f1;
+  void* df2;
+  long long g_stride;
+  int C, H, W;
+  float inv_c, leaky;
+  int th, wj, cpb;  // the plan
+  int ytiles, xtiles, cblocks;
+  int vf, vg;       // copy widths (elements) of f1 and of g/out
+  FastDiv by_wj;
+};
+
+__host__ __device__ constexpr int bwd_stage_elems(int md, int th, int wj,
+                                                  int cpb) {
+  return cpb * pad_ld(16 * wj + 2 * FP_BWD) +
+         2 * th * (2 * md + 1) * (16 * wj + 2 * FP_BWD);
+}
+
+// Bytes of dynamic shared memory: BST stages and M (M+ and M- in a 2-byte
+// type, one f32 M: the same bytes).
+__host__ __device__ constexpr int bwd_smem_bytes(int esize, int md, int th,
+                                                 int wj, int cpb) {
+  return BST * bwd_stage_elems(md, th, wj, cpb) * esize +
+         th * wj * 16 * LDM * 4;
+}
+
+// Block blockIdx.x = ((n * ytiles + yt) * xtiles + xt) * cblocks + cb:
+// target rows yt*th.., columns xt*16*wj.., channels cb*cpb... Warp w:
+// target row w % th, column tile w / th. MT: the warp's m16 tiles of
+// channels (cpb <= 16 * MT), so that the accumulators a plan leaves unused
+// take no registers.
+template <typename T, int MD, int MT>
+__global__ void __launch_bounds__(BWD_MAX_WARPS * 32, 4)
+    corr_bwd_f2_kernel(const BwdArgs p) {
+  constexpr int D = 2 * MD + 1;
+  constexpr bool kF32 = sizeof(T) == 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int TX = 16 * p.wj, SWF = TX + 2 * FP_BWD, SWG = TX + 2 * FP_BWD;
+  const int LDF = pad_ld(SWF);
+  const int stage_elems = bwd_stage_elems(MD, p.th, p.wj, p.cpb);
+  const FastDiv by_wj = p.by_wj;
+  T* stage = reinterpret_cast<T*>(smem);
+  // M (after the stages): bf16/f16 M+ and M- of (row, tile) at
+  // ((r * wj + j) * 2 + sign) * 16 * LDM, f32 M at (r * wj + j) * 16 * LDM
+  unsigned char* mbuf = smem + BST * stage_elems * sizeof(T);
+  T* mh = reinterpret_cast<T*>(mbuf);
+  float* mf = reinterpret_cast<float*>(mbuf);
+  const bool leaky = p.out != nullptr;
+
+  uint32_t b = blockIdx.x;
+  const int cbk = (int)(b % (uint32_t)p.cblocks);
+  b /= (uint32_t)p.cblocks;
+  const int xt = (int)(b % (uint32_t)p.xtiles);
+  b /= (uint32_t)p.xtiles;
+  const int yt = (int)(b % (uint32_t)p.ytiles);
+  const int n = (int)(b / (uint32_t)p.ytiles);
+  const int x0 = xt * TX, y0 = yt * p.th;
+  const int c_beg = cbk * p.cpb, nc = min(p.cpb, p.C - c_beg);
+  const int H = p.H, W = p.W;
+  const size_t plane = (size_t)H * W;
+  const T* f1n =
+      static_cast<const T*>(p.f1) + ((size_t)n * p.C + c_beg) * plane;
+  const T* gn = static_cast<const T*>(p.g) + (size_t)n * p.g_stride;
+  const T* on = leaky ? static_cast<const T*>(p.out) +
+                            (size_t)n * D * D * plane
+                      : nullptr;
+
+  // the target rows source row ys reaches: y0 + tr, tr in [lo, hi]
+  auto reach_lo = [&](int ys) { return max(0, ys - MD - y0); };
+  auto reach_hi = [&](int ys) {
+    return min(min(p.th, H - y0) - 1, ys + MD - y0);
+  };
+
+  const StageMap mapf = stage_map<T>(SWF, p.vf, x0 - FP_BWD, W);
+  const StageMap mapg = stage_map<T>(SWG, p.vg, x0 - FP_BWD, W);
+  // source row ys: sF[k][col] = f1[c_beg + k, ys, x0-FP_BWD+col]; for each
+  // target row tr it reaches (a = y0 + tr - ys + MD in [0, D)),
+  // sG[tr][bb][col] = g[a*D + bb, ys, x0-FP_BWD+col] and sO the same of out;
+  // zero outside the image
+  auto load = [&](int ys, T* sF) {
+    T* sG = sF + p.cpb * LDF;
+    T* sO = sG + p.th * D * SWG;
+    stage_rows<T>(mapf, p.cpb, f1n,
+                  [&](int k, const T*& src, T*& dst) {
+                    src = k < nc ? f1n + k * plane + (size_t)ys * W + x0 -
+                                       FP_BWD
+                                 : nullptr;
+                    dst = sF + k * LDF;
+                  });
+    const int lo = reach_lo(ys), rows = (reach_hi(ys) - lo + 1) * D;
+    const size_t at = (size_t)ys * W + x0 - FP_BWD;
+    auto row_of = [&](const T* base, T* s) {
+      return [=](int rho, const T*& src, T*& dst) {
+        const int tr = lo + rho / D, bb = rho % D;
+        const int a = y0 + tr - ys + MD;
+        src = base + (size_t)(a * D + bb) * plane + at;
+        dst = s + (tr * D + bb) * SWG;
+      };
+    };
+    stage_rows<T>(mapg, rows, gn, row_of(gn, sG));
+    if (leaky) stage_rows<T>(mapg, rows, on, row_of(on, sO));
+  };
+
+  const int r = warp % p.th, j = warp / p.th;
+  const int y = y0 + r;
+  const bool live = warp < p.th * p.wj && y < H && x0 + 16 * j < W;
+
+  // M is zero off the band, once; the band is rewritten every source row
+  {
+    const int words = p.th * p.wj * 16 * LDM;  // 4-byte words
+    for (int i = tid; i < words; i += nthr) mf[i] = 0.f;
+  }
+
+  float accp[MT][2][4], accm[MT][2][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) accp[mt][nt][e] = accm[mt][nt][e] = 0.f;
+
+  // a ring of BST staged source rows, BST - 1 in flight ahead
+  const int ys_lo = max(0, y0 - MD), ys_hi = min(H - 1, y0 + p.th - 1 + MD);
+  const int S = ys_hi - ys_lo + 1;
+#pragma unroll
+  for (int i = 0; i < BST - 1; ++i) {
+    if (i < S) load(ys_lo + i, stage + i * stage_elems);
+    cp_async_commit();
+  }
+  for (int i = 0; i < S; ++i) {
+    const int ys = ys_lo + i;
+    const T* sF = stage + (i % BST) * stage_elems;
+    const T* sG = sF + p.cpb * LDF;
+    const T* sO = sG + p.th * D * SWG;
+    cp_async_wait<BST - 2>();
+    __syncthreads();  // row ys landed; every warp is done with ys - 1
+    if (i + BST - 1 < S)
+      load(ys + BST - 1, stage + ((i + BST - 1) % BST) * stage_elems);
+    cp_async_commit();
+    // assemble the band of M for each target row ys reaches: M[x][k] with
+    // k = x - dx' + FP_BWD, from sG[tr][bb = dx' + MD][16j + k]; a thread
+    // takes one (x, bb) of the 16*D and walks the reached tiles
+    const int lo = reach_lo(ys);
+    const int cnt = (reach_hi(ys) - lo + 1) * p.wj;  // tiles reached, <= 8
+    for (int pr = tid; pr < 16 * D; pr += nthr) {
+      const int x = pr / D, bb = pr - x * D;
+      const int k = x - bb + MD + FP_BWD;
+      // the loads of four tiles in flight, then their stores
+#pragma unroll
+      for (int e0 = 0; e0 < BWD_MAX_WARPS; e0 += 4) {
+        T gv[4];
+        bool neg[4];
+        int tile[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = e0 + u;
+          if (e >= cnt) break;
+          const int q = by_wj.div(e);
+          const int tj = e - q * p.wj;
+          const int si = ((lo + q) * D + bb) * SWG + 16 * tj + k;
+          tile[u] = (lo + q) * p.wj + tj;
+          gv[u] = sG[si];
+          neg[u] = leaky && to_f32(sO[si]) < 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (e0 + u >= cnt) break;
+          if constexpr (kF32) {
+            mf[(tile[u] * 16 + x) * LDM + k] =
+                neg[u] ? p.leaky * gv[u] : gv[u];
+          } else {
+            const T zero = from_f32<T>(0.f);
+            const int m = (tile[u] * 32 + x) * LDM + k;
+            mh[m] = neg[u] ? zero : gv[u];
+            mh[m + 16 * LDM] = neg[u] ? gv[u] : zero;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    const int a = y - ys + MD;
+    if (!live || a < 0 || a >= D) continue;
+    const int tile = r * p.wj + j;
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      const T* fa = sF + 16 * j + 16 * ks;
+      if constexpr (kF32) {
+        const float* mb = mf + tile * 16 * LDM + 16 * ks;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if (16 * mt >= nc) break;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+            fma_16x8x16(accp[mt][nt], fa + 16 * mt * LDF, LDF, 1,
+                        mb + 8 * nt * LDM, 1, LDM);
+        }
+      } else {
+        uint32_t bp[4], bm[4];
+        frag_b2_nrows(bp, mh + (tile * 2) * 16 * LDM + 16 * ks, LDM);
+        if (leaky)
+          frag_b2_nrows(bm, mh + (tile * 2 + 1) * 16 * LDM + 16 * ks, LDM);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if (16 * mt >= nc) break;
+          uint32_t af[4];
+          frag_a_rows(af, fa + 16 * mt * LDF, LDF);
+          mma<T>(accp[mt][0], af, bp[0], bp[1]);
+          mma<T>(accp[mt][1], af, bp[2], bp[3]);
+          if (leaky) {
+            mma<T>(accm[mt][0], af, bm[0], bm[1]);
+            mma<T>(accm[mt][1], af, bm[2], bm[3]);
+          }
+        }
+      }
+    }
+  }
+  if (!live) return;
+  // each lane's two neighbouring columns in one store where W is even
+  const int gq = lane >> 2, t4 = lane & 3;
+  const float lk = leaky ? p.leaky : 0.f;
+  T* o = static_cast<T*>(p.df2) + ((size_t)n * p.C + c_beg) * plane +
+         (size_t)y * W;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = 16 * mt + gq + 8 * h;
+        const int x = x0 + 16 * j + 8 * nt + 2 * t4;
+        if (c >= nc || x >= W) continue;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          v[e] = (accp[mt][nt][2 * h + e] + lk * accm[mt][nt][2 * h + e]) *
+                 p.inv_c;
+        if (W % 2 == 0) {
+          store_vec(o + c * plane + x, v, 2);
+        } else {
+          o[c * plane + x] = from_f32<T>(v[0]);
+          if (x + 1 < W) o[c * plane + x + 1] = from_f32<T>(v[1]);
+        }
+      }
+}
+
+template <typename T, int MD, int MT>
+int launch_bwd_f2_mt(BwdArgs a, int n, cudaStream_t stream) {
+  static int allowed = 0;
+  const int smem = bwd_smem_bytes((int)sizeof(T), MD, a.th, a.wj, a.cpb);
+  if (int e = allow_smem(corr_bwd_f2_kernel<T, MD, MT>, smem, allowed))
+    return e;
+  const long long blocks = (long long)n * a.ytiles * a.xtiles * a.cblocks;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  corr_bwd_f2_kernel<T, MD, MT>
+      <<<(unsigned)blocks, 32 * block_warps(a.th * a.wj), smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int MD>
+int launch_bwd_f2_md(BwdArgs a, int n, cudaStream_t stream) {
+  if (a.cpb <= 16) return launch_bwd_f2_mt<T, MD, 1>(a, n, stream);
+  if (a.cpb <= 32) return launch_bwd_f2_mt<T, MD, 2>(a, n, stream);
+  return launch_bwd_f2_mt<T, MD, 4>(a, n, stream);
+}
+
+template <typename T>
+int launch_bwd_f2(const void* g, const void* out, const void* f1, void* df2,
+                  long long g_stride, int n, int c, int h, int w, int md,
+                  float leaky, int th, int wj, int cpb, cudaStream_t stream) {
+  BwdArgs a;
+  a.g = g;
+  a.out = out;
+  a.f1 = f1;
+  a.df2 = df2;
+  a.g_stride = g_stride;
+  a.C = c;
+  a.H = h;
+  a.W = w;
+  a.inv_c = (float)(1.0 / c);
+  a.leaky = leaky;
+  a.th = th;
+  a.wj = wj;
+  a.cpb = cpb;
+  a.ytiles = (h + th - 1) / th;
+  a.xtiles = (w + 16 * wj - 1) / (16 * wj);
+  a.cblocks = (c + cpb - 1) / cpb;
+  a.by_wj = fast_div(wj);
+  const int es = (int)sizeof(T);
+  const long long dd = (long long)(2 * md + 1) * (2 * md + 1);
+  a.vf = copy_width(f1, (long long)c * h * w, w, es, 16 / es);
+  a.vg = copy_width(g, g_stride, w, es, 16 / es);
+  if (out != nullptr) {
+    const int vo = copy_width(out, dd * h * w, w, es, 16 / es);
+    a.vg = vo < a.vg ? vo : a.vg;
+  }
+  switch (md) {
     case 1:
-      return launch_bwd<__nv_bfloat16>(which, g, out, f, df, n, c, h, w, md,
-                                       leaky, s);
+      return launch_bwd_f2_md<T, 1>(a, n, stream);
     case 2:
-      return launch_bwd<__half>(which, g, out, f, df, n, c, h, w, md, leaky,
-                                s);
+      return launch_bwd_f2_md<T, 2>(a, n, stream);
+    case 3:
+      return launch_bwd_f2_md<T, 3>(a, n, stream);
+    case 4:
+      return launch_bwd_f2_md<T, 4>(a, n, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+bool bad_shape(int n, int c, int h, int w, int md) {
+  return n <= 0 || c <= 0 || h <= 0 || w <= 0 || md < 1 || md > 4;
 }
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16, 2 = f16. Returns cudaGetLastError() after the
-// launch (0 on success); nothing is synchronised or allocated here.
+// dtype: 0 = f32, 1 = bf16, 2 = f16. The tiling (th, wj, ndg, kc) comes
+// from ops/correlation.py::corr_plan: th output rows, 16*wj columns and
+// ndg groups of 3 dy rows a block, kc channels (a multiple of 16) a
+// cluster rank, ceil(c / kc) <= 8 ranks, 32*th*wj*ndg <= 512 threads.
+// Returns the launch's error (0 on success); nothing is synchronised or
+// allocated here.
 extern "C" int mfn_corr_fwd(const void* f1, const void* f2, void* out, int n,
                             int c, int h, int w, int md, int dtype,
-                            float leaky, int use_leaky, void* stream) {
-  if (n <= 0 || n > 65535 || c <= 0 || h <= 0 || w <= 0)
+                            float leaky, int use_leaky, int th, int wj,
+                            int ndg, int kc, void* stream) {
+  if (bad_shape(n, c, h, w, md) || th < 1 || wj < 1 || ndg < 1 ||
+      kc < 16 || kc % 16 || (c + kc - 1) / kc > MAX_CLUSTER ||
+      th * wj * ndg > FWD_MAX_WARPS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float>(f1, f2, out, n, c, h, w, md, leaky, use_leaky, s);
+      return launch_fwd<float>(f1, f2, out, n, c, h, w, md, leaky, use_leaky,
+                               th, wj, ndg, kc, s);
     case 1:
-      return launch<__nv_bfloat16>(f1, f2, out, n, c, h, w, md, leaky,
-                                   use_leaky, s);
+      return launch_fwd<bf16>(f1, f2, out, n, c, h, w, md, leaky, use_leaky,
+                              th, wj, ndg, kc, s);
     case 2:
-      return launch<__half>(f1, f2, out, n, c, h, w, md, leaky, use_leaky, s);
+      return launch_fwd<__half>(f1, f2, out, n, c, h, w, md, leaky,
+                                use_leaky, th, wj, ndg, kc, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// g, out: (N, D*D, H, W); f2 / f1 and the result: (N, C, H, W); one dtype
-// (0 = f32, 1 = bf16, 2 = f16). out == NULL: no LeakyReLU (leaky unread).
-// Return as mfn_corr_fwd.
+// g: (N, D*D, H, W) images g_stride elements apart, each a dense block;
+// out (the forward's saved output, NULL without the LeakyReLU: leaky
+// unread): dense (N, D*D, H, W); f2 / f1 and the result: dense (N, C, H, W);
+// one dtype (0 = f32, 1 = bf16, 2 = f16). Return as mfn_corr_fwd.
 extern "C" int mfn_corr_bwd_f1(const void* g, const void* out, const void* f2,
                                void* df1, int n, int c, int h, int w, int md,
-                               int dtype, float leaky, void* stream) {
-  return bwd_entry(1, g, out, f2, df1, n, c, h, w, md, dtype, leaky, stream);
+                               int dtype, float leaky, long long g_stride,
+                               void* stream) {
+  if (bad_shape(n, c, h, w, md)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch_bwd_f1<float>(g, out, f2, df1, g_stride, n, c, h, w, md,
+                                  leaky, s);
+    case 1:
+      return launch_bwd_f1<bf16>(g, out, f2, df1, g_stride, n, c, h, w, md,
+                                 leaky, s);
+    case 2:
+      return launch_bwd_f1<__half>(g, out, f2, df1, g_stride, n, c, h, w, md,
+                                   leaky, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
+// As mfn_corr_bwd_f1, with f1 in place of f2; the tiling (th, wj, cpb)
+// comes from corr_plan: th target rows and 16*wj columns a block, cpb
+// channels (a multiple of 16, <= 64) a block, th*wj <= 8 warps.
 extern "C" int mfn_corr_bwd_f2(const void* g, const void* out, const void* f1,
                                void* df2, int n, int c, int h, int w, int md,
-                               int dtype, float leaky, void* stream) {
-  return bwd_entry(2, g, out, f1, df2, n, c, h, w, md, dtype, leaky, stream);
+                               int dtype, float leaky, long long g_stride,
+                               int th, int wj, int cpb, void* stream) {
+  if (bad_shape(n, c, h, w, md) || th < 1 || wj < 1 || cpb < 16 ||
+      cpb > 64 || cpb % 16 || th * wj > BWD_MAX_WARPS)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch_bwd_f2<float>(g, out, f1, df2, g_stride, n, c, h, w, md,
+                                  leaky, th, wj, cpb, s);
+    case 1:
+      return launch_bwd_f2<bf16>(g, out, f1, df2, g_stride, n, c, h, w, md,
+                                 leaky, th, wj, cpb, s);
+    case 2:
+      return launch_bwd_f2<__half>(g, out, f1, df2, g_stride, n, c, h, w, md,
+                                   leaky, th, wj, cpb, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory (bytes) a launch takes: kind 0 the forward (a..d =
+// th, wj, ndg, kc), kind 1 corr_bwd_f2 (a..c = th, wj, cpb); esize the
+// element size (4 or 2). ops/correlation.py computes the same.
+extern "C" int mfn_corr_smem_bytes(int kind, int esize, int md, int a, int b,
+                                   int c, int d) {
+  return kind == 0 ? fwd_smem_bytes(esize, md, a, b, c, d)
+                   : bwd_smem_bytes(esize, md, a, b, c);
 }
 
 extern "C" const char* mfn_cuda_error_string(int err) {

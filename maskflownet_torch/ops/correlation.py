@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -105,25 +106,229 @@ def correlation_bwd_plain(g: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
             correlation_bwd_f2_plain(g, f1, out, md, leaky))
 
 
+# Mirrors of csrc/correlation.cu's tiling constants (see corr_plan).
+FWD_CHUNK = 32      # channels a staged forward chunk (FKC)
+FWD_GW = 3          # dy rows a forward warp (GW)
+FWD_MAX_WARPS = 8   # warps a forward block at most
+MAX_CLUSTER = 8     # cluster ranks (channel splits) at most, portable size
+WINDOW_PAD = 4      # the forward's window starts at x0 - 4 (FP)
+BWD_PAD = 8         # corr_bwd_f2's window starts at x0 - 8 (FP_BWD)
+BWD_MAX_WARPS = 4   # warps a corr_bwd_f2 block at most
+MIN_WARPS = 4       # warps a block at least (those past the tasks stage)
+BWD_CHANNELS = 64   # channels a corr_bwd_f2 block owns at most
+BWD_K = 32          # source pixels of a corr_bwd_f2 tile (BK)
+BWD_STAGES = 3      # staged source rows a corr_bwd_f2 block (BST)
+MAX_SMEM = 232448   # dynamic shared memory a block may take on an H100
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _pad_ld(n: int) -> int:
+    """csrc's ``pad_ld``: a multiple of 8 elements whose 2-byte pitch is an
+    odd multiple of 16 bytes."""
+    n = _cdiv(n, 8) * 8
+    return n + 8 if (n // 8) % 2 == 0 else n
+
+
+def _band_pitch(th: int, tx: int) -> int:
+    """csrc's ``band_pitch``: the forward's band-buffer row pitch (floats),
+    >= tx with th * pitch = 4 (mod 32), else 8 (mod 32)."""
+    for want in (4, 8):
+        for bp in range(tx, tx + 32):
+            if th * bp % 32 == want:
+                return bp
+    return tx
+
+
+def fwd_smem_bytes(esize: int, md: int, th: int, wj: int, ndg: int,
+                   kc: int) -> int:
+    """Dynamic shared memory of one forward block (csrc's
+    ``fwd_smem_bytes``): one or two staged chunks, or the f32 band buffer
+    of the epilogue that aliases them."""
+    tx = 16 * wj
+    stage = FWD_CHUNK * (_pad_ld(th * tx) + _pad_ld(
+        (th + FWD_GW * ndg - 1) * (tx + 2 * WINDOW_PAD)))
+    staged = (2 if kc > FWD_CHUNK else 1) * stage * esize
+    return max(staged,
+               FWD_GW * ndg * (2 * md + 1) * th * _band_pitch(th, tx) * 4)
+
+
+def bwd_smem_bytes(esize: int, md: int, th: int, wj: int, cpb: int) -> int:
+    """Dynamic shared memory of one ``corr_bwd_f2`` block (csrc's
+    ``bwd_smem_bytes``): a ring of staged source rows and M."""
+    tx = 16 * wj
+    stage = cpb * _pad_ld(tx + 2 * BWD_PAD) + 2 * th * (2 * md + 1) * (
+        tx + 2 * BWD_PAD)
+    return BWD_STAGES * stage * esize + th * wj * 16 * (BWD_K + 8) * 4
+
+
+class CorrPlan(NamedTuple):
+    """The tiling of ``csrc/correlation.cu`` for one shape and md.
+
+    * forward: blocks of ``fwd_th`` output rows x ``16 * fwd_wj`` columns
+      x ``fwd_ndg`` groups of 3 dy rows (one warp a row, column tile and
+      group, at least ``MIN_WARPS``), ``fwd_kc`` channels a cluster rank,
+      ``fwd_cs`` ranks a cluster (1: no cluster);
+    * ``corr_bwd_f2``: blocks of ``bwd_th`` target rows x ``16 * bwd_wj``
+      columns (one warp each, at least ``MIN_WARPS``) x ``bwd_cpb``
+      channels.
+
+    ``*_blocks`` and ``*_threads`` size each grid; ``*_floor`` is True
+    when the plan launches fewer than two blocks a multiprocessor because
+    no split is left (every block holds one row, one dy group and one
+    16-channel chunk, or one target row, tile and 16 channels)."""
+
+    fwd_th: int
+    fwd_wj: int
+    fwd_ndg: int
+    fwd_kc: int
+    fwd_cs: int
+    fwd_blocks: int
+    fwd_threads: int
+    fwd_floor: bool
+    bwd_th: int
+    bwd_wj: int
+    bwd_cpb: int
+    bwd_blocks: int
+    bwd_threads: int
+    bwd_floor: bool
+
+
+def _fwd_tiling(n, c, h, w, md, sms):
+    ng = _cdiv(2 * md + 1, FWD_GW)
+    k16 = _cdiv(c, 16)
+    ndg = ng
+
+    def rows(wj):
+        return max(1, min(h, FWD_MAX_WARPS // (wj * ndg)))
+
+    def staged(wj):
+        # f1 and f2 elements an image's blocks stage a channel
+        th, tx = rows(wj), 16 * wj
+        return _cdiv(h, th) * _cdiv(w, tx) * (
+            th * tx + (th + FWD_GW * ndg - 1) * (tx + 2 * WINDOW_PAD))
+
+    wj = min((1, 2) if w > 16 else (1,), key=staged)
+    th = rows(wj)
+    kr = k16  # k16 steps a rank
+
+    def blocks(th, ndg, kr):
+        return (n * _cdiv(h, th) * _cdiv(w, 16 * wj) * _cdiv(ng, ndg)
+                * _cdiv(k16, kr))
+
+    def more_ranks(kr, least):
+        # the next smaller k16 steps a rank that adds ranks, <= MAX_CLUSTER
+        for k in range(kr - 1, least - 1, -1):
+            if _cdiv(k16, kr) < _cdiv(k16, k) <= MAX_CLUSTER:
+                return k
+        return None
+
+    # split until two blocks a multiprocessor: channels across a cluster
+    # while each rank keeps a whole chunk, then the dy groups, then
+    # channels down to one k16 step a rank, then rows
+    while blocks(th, ndg, kr) < 2 * sms:
+        if (k := more_ranks(kr, FWD_CHUNK // 16)) is not None:
+            kr = k
+        elif ndg > 1:
+            ndg = 1
+        elif (k := more_ranks(kr, 1)) is not None:
+            kr = k
+        elif th > 1:
+            th = _cdiv(th, 2)
+        else:
+            break
+    b = blocks(th, ndg, kr)
+    return (th, wj, ndg, 16 * kr, _cdiv(k16, kr), b,
+            32 * max(MIN_WARPS, th * wj * ndg), b < 2 * sms)
+
+
+def _bwd_tiling(n, c, h, w, md, sms):
+    wj = 2 if w > 16 else 1
+    th = max(1, min(h, BWD_MAX_WARPS // wj))
+    cpb = min(BWD_CHANNELS, _cdiv(c, 16) * 16)
+
+    def blocks(th, cpb):
+        return n * _cdiv(h, th) * _cdiv(w, 16 * wj) * _cdiv(c, cpb)
+
+    # split until two blocks a multiprocessor: channels down to 32 a block,
+    # then target rows, then channels down to 16
+    while blocks(th, cpb) < 2 * sms:
+        if cpb > 32:
+            cpb = 32
+        elif th > 1:
+            th = _cdiv(th, 2)
+        elif cpb > 16:
+            cpb = 16
+        else:
+            break
+    b = blocks(th, cpb)
+    return th, wj, cpb, b, 32 * max(MIN_WARPS, th * wj), b < 2 * sms
+
+
+@functools.lru_cache(maxsize=1024)
+def corr_plan(n: int, c: int, h: int, w: int, md: int,
+              sms: int = 132) -> CorrPlan:
+    """The kernels' tiling for features (n, c, h, w) at ``md`` on a card of
+    ``sms`` multiprocessors: each kernel splits its work until it launches
+    two blocks a multiprocessor or every split is taken (the latency floor
+    of the coarse levels, ``*_floor``)."""
+    return CorrPlan(*_fwd_tiling(n, c, h, w, md, sms),
+                    *_bwd_tiling(n, c, h, w, md, sms))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _plan_for(t: torch.Tensor, md: int) -> CorrPlan:
+    return corr_plan(*t.shape, md, _sm_count(t.device.index))
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("correlation")
     lib.mfn_corr_fwd.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.mfn_corr_fwd.restype = ctypes.c_int
+    lib.mfn_corr_bwd_f1.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p])
+    lib.mfn_corr_bwd_f2.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_longlong] + [ctypes.c_int] * 3
+        + [ctypes.c_void_p])
     for fn in (lib.mfn_corr_bwd_f1, lib.mfn_corr_bwd_f2):
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    lib.mfn_corr_smem_bytes.argtypes = [ctypes.c_int] * 7
+    lib.mfn_corr_smem_bytes.restype = ctypes.c_int
     lib.mfn_cuda_error_string.argtypes = [ctypes.c_int]
     lib.mfn_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def dense_per_image(t: torch.Tensor) -> bool:
+    """Whether each image of an (N, K, H, W) tensor is one dense (K, H, W)
+    block, the images at any non-overlapping distance (a channel slice of
+    a larger NCHW tensor is): the layout the gradient kernels read g in."""
+    n, k, h, w = t.shape
+    sizes, strides = (k, h, w), t.stride()[1:]
+    expect = 1
+    for size, stride in zip(reversed(sizes), reversed(strides)):
+        if size != 1 and stride != expect:
+            return False
+        expect *= size
+    return n == 1 or t.stride(0) >= expect
+
+
 def _check(name: str, feats, maps, md: int) -> None:
     """Raise unless the kernel takes these inputs: ``feats`` are the (N,C,H,W)
-    feature maps, ``maps`` the (N,(2md+1)^2,H,W) cotangent/output maps."""
+    feature maps, ``maps`` the (N,(2md+1)^2,H,W) cotangent/output maps. The
+    first map may be any tensor each of whose images is dense
+    (:func:`dense_per_image`); every other input is contiguous."""
     ts = list(feats) + list(maps)
     dev, dtype = ts[0].device, ts[0].dtype
     if dev.type != "cuda" or any(t.device != dev for t in ts):
@@ -144,9 +349,11 @@ def _check(name: str, feats, maps, md: int) -> None:
     if any(tuple(t.shape) != dshape for t in maps):
         raise ValueError(f"{name}: expected {dshape} for the cost-volume "
                          f"maps, got {[tuple(t.shape) for t in maps]}")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError(f"{name}: inputs must be contiguous NCHW")
-    if n > 65535 or c * h * w >= 2 ** 31 or dshape[1] * h * w >= 2 ** 31:
+    if not all(t.is_contiguous() for t in list(feats) + list(maps[1:])) \
+            or (maps and not dense_per_image(maps[0])):
+        raise ValueError(f"{name}: inputs must be contiguous NCHW (the "
+                         "cotangent: each image one dense block)")
+    if c * h * w >= 2 ** 31 or dshape[1] * h * w >= 2 ** 31:
         raise ValueError(f"{name}: shape {tuple(shape)} too large")
 
 
@@ -158,7 +365,8 @@ def _raise_on(name: str, err: int) -> None:
 
 def corr_fwd(f1: torch.Tensor, f2: torch.Tensor, md: int,
              leaky: float | None = None) -> torch.Tensor:
-    """Launch the CUDA forward kernel on the current stream.
+    """Launch the CUDA forward kernel on the current stream, tiled by
+    :func:`corr_plan`.
 
     f1/f2: contiguous NCHW CUDA tensors of one shape and dtype (f32, bf16
     or f16). Returns (N, (2md+1)^2, H, W) in that dtype, without a
@@ -173,12 +381,14 @@ def corr_fwd(f1: torch.Tensor, f2: torch.Tensor, md: int,
     _check("corr_fwd", (f1, f2), (), md)
     n, c, h, w = f1.shape
     d = 2 * md + 1
+    plan = _plan_for(f1, md)
     out = torch.empty((n, d * d, h, w), dtype=f1.dtype, device=f1.device)
     with torch.cuda.device(f1.device):
         err = _lib().mfn_corr_fwd(
             f1.data_ptr(), f2.data_ptr(), out.data_ptr(), n, c, h, w, md,
             _DTYPE_CODES[f1.dtype], 0.0 if leaky is None else float(leaky),
-            int(leaky is not None), torch.cuda.current_stream().cuda_stream)
+            int(leaky is not None), plan.fwd_th, plan.fwd_wj, plan.fwd_ndg,
+            plan.fwd_kc, torch.cuda.current_stream().cuda_stream)
     _raise_on("corr_fwd", err)
     corr_fwd.launches += 1
     return out
@@ -187,19 +397,30 @@ def corr_fwd(f1: torch.Tensor, f2: torch.Tensor, md: int,
 corr_fwd.launches = 0
 
 
-def _bwd(name: str, fn_name: str, g, feat, out, md, leaky):
+def _bwd(name: str, g, feat, out, md, leaky):
     if (out is None) != (leaky is None):
         raise ValueError(f"{name}: pass the saved output exactly when the "
                          "LeakyReLU is fused (leaky is not None)")
     _check(name, (feat,), (g,) if out is None else (g, out), md)
     n, c, h, w = feat.shape
     grad = torch.empty_like(feat)
-    with torch.cuda.device(feat.device):
-        err = getattr(_lib(), fn_name)(
-            g.data_ptr(), None if out is None else out.data_ptr(),
+    lib = _lib()
+    args = (g.data_ptr(), None if out is None else out.data_ptr(),
             feat.data_ptr(), grad.data_ptr(), n, c, h, w, md,
             _DTYPE_CODES[feat.dtype], 0.0 if leaky is None else float(leaky),
-            torch.cuda.current_stream().cuda_stream)
+            g.stride(0))
+    with torch.cuda.device(feat.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if name == "corr_bwd_f1":
+            if n * _cdiv(c, 8) > 65535:
+                raise ValueError(f"{name}: N * ceil(C / 8) = "
+                                 f"{n * _cdiv(c, 8)} blocks exceed the "
+                                 "grid's z limit")
+            err = lib.mfn_corr_bwd_f1(*args, stream)
+        else:
+            plan = _plan_for(feat, md)
+            err = lib.mfn_corr_bwd_f2(*args, plan.bwd_th, plan.bwd_wj,
+                                      plan.bwd_cpb, stream)
     _raise_on(name, err)
     return grad
 
@@ -208,10 +429,12 @@ def corr_bwd_f1(g: torch.Tensor, f2: torch.Tensor, out: torch.Tensor | None,
                 md: int, leaky: float | None = None) -> torch.Tensor:
     """Launch the CUDA kernel for d cost / d f1 on the current stream.
 
-    g (the cotangent) and out (the forward's saved output, None without
-    ``leaky``): contiguous (N,(2md+1)^2,H,W); f2: contiguous (N,C,H,W); one
-    CUDA device and dtype. Returns df1 (N,C,H,W) in that dtype."""
-    df1 = _bwd("corr_bwd_f1", "mfn_corr_bwd_f1", g, f2, out, md, leaky)
+    g (the cotangent): (N,(2md+1)^2,H,W), each image one dense block (a
+    channel slice of a larger tensor is taken as it is); out (the
+    forward's saved output, None without ``leaky``): contiguous, as g;
+    f2: contiguous (N,C,H,W); one CUDA device and dtype. Returns df1
+    (N,C,H,W) in that dtype."""
+    df1 = _bwd("corr_bwd_f1", g, f2, out, md, leaky)
     corr_bwd_f1.launches += 1
     return df1
 
@@ -221,9 +444,10 @@ corr_bwd_f1.launches = 0
 
 def corr_bwd_f2(g: torch.Tensor, f1: torch.Tensor, out: torch.Tensor | None,
                 md: int, leaky: float | None = None) -> torch.Tensor:
-    """Launch the CUDA kernel for d cost / d f2; arguments as
-    :func:`corr_bwd_f1`, with f1 in place of f2. Returns df2."""
-    df2 = _bwd("corr_bwd_f2", "mfn_corr_bwd_f2", g, f1, out, md, leaky)
+    """Launch the CUDA kernel for d cost / d f2, tiled by
+    :func:`corr_plan`; arguments as :func:`corr_bwd_f1`, with f1 in place
+    of f2. Returns df2."""
+    df2 = _bwd("corr_bwd_f2", g, f1, out, md, leaky)
     corr_bwd_f2.launches += 1
     return df2
 
@@ -253,7 +477,9 @@ class CorrelationFunction(torch.autograd.Function):
     def backward(ctx, g):
         f1, f2, out = ctx.saved_tensors
         md, leaky = ctx.md, ctx.leaky
-        g = g.to(f1.dtype).contiguous()
+        g = g.to(f1.dtype)
+        if not dense_per_image(g):
+            g = g.contiguous()
         if f1.device.type != "cuda":
             df1, df2 = correlation_bwd_plain(g, f1, f2, out, md, leaky)
             return df1, df2, None, None

@@ -43,7 +43,9 @@ def test_importing_the_port_loads_no_banned_module():
             "maskflownet_torch.ops.affine, maskflownet_torch.ops.deform, "
             "maskflownet_torch.models.maskflownet, "
             "maskflownet_torch.tools.profile_infer, "
-            "maskflownet_torch.tools.grad_parity\n"
+            "maskflownet_torch.tools.grad_parity, "
+            "maskflownet_torch.tools.corr_ab, "
+            "maskflownet_torch.tools.corr_trace\n"
             f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
