@@ -17,7 +17,8 @@ Phases, each timed on its own line:
      multiple of 8, a partial last channel chunk, 7 cluster ranks), f32
      and bf16, LeakyReLU on and off, f16 once (``CORR_F16_CASES``); the
      gradients also on a cotangent that is a channel slice of a larger
-     tensor (bitwise equal to the contiguous result), and through
+     tensor (bitwise equal to the contiguous result), at a batch past the
+     65535 of a grid's y and z dimensions (``BIG_BATCH``), and through
      ``correlation`` and ``torch.cat`` without a copy of it; then every
      level of every main path in bf16 (``CORR_PATHS``): each kernel with
      the L2 flushed before each call, back to back, the wrapper's host
@@ -157,9 +158,12 @@ CASCADE_TRAIN_LEVELS = [(2, (4, 32, 80, 192)), (3, (4, 64, 40, 96)),
 # 1 split over 7 cluster ranks
 CORR_EDGES = [(1, (1, 20, 6, 7)), (2, (3, 100, 6, 12)), (3, (2, 40, 5, 18)),
               (4, (2, 36, 7, 33)), (4, (1, 196, 5, 7)), (1, (2, 24, 4, 40))]
-# f16, run once for the two tensor-core kernels: the S step's level 2 and
+# f16, run once for the three tensor-core kernels: the S step's level 2 and
 # one edge
 CORR_F16_CASES = [(4, TRAIN_LEVELS[0][1]), (4, (2, 36, 7, 33))]
+# the gradients at a batch whose N * ceil(C / 8) = 66560 passes the 65535 of
+# a grid's y and z dimensions (corr_bwd_f1's first design carried it there)
+BIG_BATCH = (4, (1040, 512, 2, 3))
 # f32: kernel and plain version sum over C in different orders; bf16 and
 # f16: the kernel's output is one rounding (<= 2^-8, 2^-11 relative) of the
 # f32 value
@@ -325,19 +329,23 @@ def plan_note(shape, md: int, kernel: str) -> str:
                 f"cluster {plan.fwd_cs} (th {plan.fwd_th}, wj {plan.fwd_wj}, "
                 f"ndg {plan.fwd_ndg}, kc {plan.fwd_kc}"
                 f"{', at its floor' if plan.fwd_floor else ''})")
-    if kernel == "corr_bwd_f2":
-        for es in (2, 4):
-            require(lib.mfn_corr_smem_bytes(
-                1, es, md, plan.bwd_th, plan.bwd_wj, plan.bwd_cpb, 0) ==
-                corr_module.bwd_smem_bytes(es, md, plan.bwd_th, plan.bwd_wj,
-                                           plan.bwd_cpb),
-                "corr_bwd_f2 shared memory: library and plan disagree")
-        return (f"{plan.bwd_blocks} blocks of {plan.bwd_threads} threads, "
-                f"cluster 1 (th {plan.bwd_th}, wj {plan.bwd_wj}, cpb "
-                f"{plan.bwd_cpb}{', at its floor' if plan.bwd_floor else ''})")
-    n, c, h, w = shape
-    return f"{math.ceil(w / 32) * math.ceil(h / 8) * n * math.ceil(c / 8)} " \
-        "blocks of 256 threads"
+    pre = "bwd" if kernel == "corr_bwd_f2" else "f1"
+    th, wj, cpb, blocks, threads, floor = (
+        getattr(plan, f"{pre}_{k}")
+        for k in ("th", "wj", "cpb", "blocks", "threads", "floor"))
+    runs = corr_module.f1_runs(shape[3], wj)
+    for es in (2, 4):
+        if kernel == "corr_bwd_f2":
+            smem = lib.mfn_corr_smem_bytes(1, es, md, th, wj, cpb, 0)
+            mirror = corr_module.bwd_smem_bytes(es, md, th, wj, cpb)
+        else:
+            smem = lib.mfn_corr_smem_bytes(2, es, md, th, wj, cpb, runs)
+            mirror = corr_module.bwd_f1_smem_bytes(es, md, th, wj, cpb, runs)
+        require(smem == mirror,
+                f"{kernel} shared memory: library and plan disagree")
+    return (f"{blocks} blocks of {threads} threads, cluster 1 (th {th}, wj "
+            f"{wj}, cpb {cpb}, {smem} B shared memory in f32"
+            f"{', at its floor' if floor else ''})")
 
 
 def check_kernel(gen):
@@ -398,15 +406,15 @@ def channel_slice(g):
 
 def check_bwd_kernels(gen):
     """corr_bwd_f1/f2 vs their plain versions at the S train step's level
-    shapes (md=4), the cascade step's (md=2), the extra cases and the
-    tiling's edges, f32 and bf16 (corr_bwd_f2 also f16 at
-    CORR_F16_CASES); each also on the cotangent as a channel slice of a
-    larger tensor, required bitwise equal to the result on a contiguous
-    copy. Returns the largest f32 error of each."""
+    shapes (md=4), the cascade step's (md=2), the extra cases, the tiling's
+    edges and BIG_BATCH, f32 and bf16 (both also f16 at CORR_F16_CASES);
+    each also on the cotangent as a channel slice of a larger tensor,
+    required bitwise equal to the result on a contiguous copy. Returns the
+    largest f32 error of each."""
     worst = {(name, dt): 0.0 for name, *_ in BWD for dt in TOL}
     cases = ([(4, s) for _, s in TRAIN_LEVELS]
              + [(2, s) for _, s in CASCADE_TRAIN_LEVELS] + TRAIN_EXTRA
-             + CORR_EDGES)
+             + CORR_EDGES + [BIG_BATCH])
     for md, shape in cases:
         f16 = (md, shape) in CORR_F16_CASES
         for dtype in (torch.float32, torch.bfloat16) + (
@@ -421,8 +429,6 @@ def check_bwd_kernels(gen):
                     shape[0] == 1 or not gs.is_contiguous()),
                     "the channel slice is dense per image, not contiguous")
                 for name, kernel, plain, which in BWD:
-                    if dtype == torch.float16 and name == "corr_bwd_f1":
-                        continue
                     got = kernel(g, feats[which], out, md, leaky)
                     got_s = kernel(gs, feats[which], out, md, leaky)
                     torch.cuda.synchronize()
@@ -440,12 +446,12 @@ def check_bwd_kernels(gen):
                     worst[(name, dtype)] = max(worst[(name, dtype)], err)
                     CHECKED.add((name, tuple(shape), md, dtype))
         print(f"corr_bwd_f1/f2 check md={md} {shape}{' (+f16)' if f16 else ''}"
-              f" (cotangent contiguous and a channel slice): ok; corr_bwd_f2 "
+              f" (cotangent contiguous and a channel slice): ok; corr_bwd_f1 "
+              f"{plan_note(shape, md, 'corr_bwd_f1')}; corr_bwd_f2 "
               f"{plan_note(shape, md, 'corr_bwd_f2')}", flush=True)
     for name, *_ in BWD:
         print(f"{name} max |err|: " + ", ".join(
-            f"{str(dt).split('.')[1]} {worst[(name, dt)]:.3e}" for dt in TOL
-            if not (dt == torch.float16 and name == "corr_bwd_f1")),
+            f"{str(dt).split('.')[1]} {worst[(name, dt)]:.3e}" for dt in TOL),
             flush=True)
     return {name: worst[(name, torch.float32)] for name, *_ in BWD}
 

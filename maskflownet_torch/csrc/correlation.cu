@@ -743,122 +743,7 @@ int launch_fwd(const void* f1, const void* f2, void* out, int n, int c,
 // gradient (C), against 2*C*D*D flops a pixel: at most ~C/2 flops a byte in
 // bf16, below the ridge of either the tensor cores or the CUDA cores at the
 // fine levels.
-//
-// corr_bwd_f1_kernel replaces _corr_bwd_f1_kernel :104 (NHWC) and
-// _hm_bwd_f1_kernel :232 (H-major) of maskflownet_tpu/ops/pallas/
-// correlation.py. It is the first version's design: a block owns BCC = 8
-// channels of a TH x TW = 8 x 32 tile (grid (W tiles, H tiles, N *
-// ceil(C / BCC))), stages the f2 halo of its channels in shared memory as
-// f32 once, reads g' of its own pixels into registers one dy row of taps at
-// a time, and writes each df1 value once, coalesced along W. g and out are
-// read once per channel chunk, mostly from L2.
 // ---------------------------------------------------------------------------
-
-constexpr int TH = 8;   // f1 gradient: rows a block
-constexpr int TW = 32;  // f1 gradient: columns a block, one warp a row
-constexpr int BCC = 8;  // f1 gradient: channels a block
-
-// g' from g[gi] and out[oi] (out == nullptr: the identity).
-template <typename T>
-__device__ __forceinline__ float grad_in(const T* __restrict__ g,
-                                         const T* __restrict__ out, size_t gi,
-                                         size_t oi, float leaky) {
-  const float v = to_f32(g[gi]);
-  return (out == nullptr || to_f32(out[oi]) >= 0.f) ? v : leaky * v;
-}
-
-template <typename T, int MD>
-__global__ void __launch_bounds__(TH * TW)
-    corr_bwd_f1_kernel(const T* __restrict__ g, const T* __restrict__ out,
-                       const T* __restrict__ f2, T* __restrict__ df1,
-                       long long g_stride, int C, int H, int W, int chunks,
-                       float inv_c, float leaky) {
-  constexpr int D = 2 * MD + 1;
-  constexpr int SH = TH + 2 * MD, SW = TW + 2 * MD;
-  __shared__ float s2[BCC][SH][SW];
-
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * TW + tx;
-  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
-  const int x = x0 + tx, y = y0 + ty;
-  const int n = blockIdx.z / chunks, c0 = (blockIdx.z % chunks) * BCC;
-  const int nc = min(BCC, C - c0);
-  const size_t plane = (size_t)H * W;
-
-  const T* fn = f2 + ((size_t)n * C + c0) * plane;
-  for (int i = tid; i < BCC * SH * SW; i += TH * TW) {
-    const int cc = i / (SH * SW);
-    const int r = (i / SW) % SH;
-    const int col = i % SW;
-    const int gy = y0 - MD + r, gx = x0 - MD + col;
-    float v = 0.f;
-    if (cc < nc && gy >= 0 && gy < H && gx >= 0 && gx < W)
-      v = to_f32(fn[cc * plane + (size_t)gy * W + gx]);
-    s2[cc][r][col] = v;
-  }
-  __syncthreads();
-  if (y >= H || x >= W) return;
-
-  float acc[BCC];
-#pragma unroll
-  for (int cc = 0; cc < BCC; ++cc) acc[cc] = 0.f;
-  const size_t pix = (size_t)y * W + x;
-  const size_t gp = (size_t)n * g_stride + pix;
-  const size_t op = (size_t)n * D * D * plane + pix;
-#pragma unroll
-  for (int dy = 0; dy < D; ++dy) {
-    float gv[D];
-#pragma unroll
-    for (int dx = 0; dx < D; ++dx)
-      gv[dx] = grad_in(g, out, gp + (dy * D + dx) * plane,
-                       op + (dy * D + dx) * plane, leaky);
-#pragma unroll
-    for (int cc = 0; cc < BCC; ++cc)
-#pragma unroll
-      for (int dx = 0; dx < D; ++dx)
-        acc[cc] = fmaf(gv[dx], s2[cc][ty + dy][tx + dx], acc[cc]);
-  }
-  T* o = df1 + ((size_t)n * C + c0) * plane + pix;
-#pragma unroll
-  for (int cc = 0; cc < BCC; ++cc)
-    if (cc < nc) o[cc * plane] = from_f32<T>(acc[cc] * inv_c);
-}
-
-template <typename T>
-int launch_bwd_f1(const void* g, const void* out, const void* f2, void* df1,
-                  long long g_stride, int n, int c, int h, int w, int md,
-                  float leaky, cudaStream_t stream) {
-  const int chunks = (c + BCC - 1) / BCC;
-  if ((long long)n * chunks > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 block(TW, TH);
-  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n * chunks);
-  const float inv_c = (float)(1.0 / c);
-  const T* gt = static_cast<const T*>(g);
-  const T* ot = static_cast<const T*>(out);
-  const T* ft = static_cast<const T*>(f2);
-  T* dt = static_cast<T*>(df1);
-  switch (md) {
-    case 1:
-      corr_bwd_f1_kernel<T, 1><<<grid, block, 0, stream>>>(
-          gt, ot, ft, dt, g_stride, c, h, w, chunks, inv_c, leaky);
-      break;
-    case 2:
-      corr_bwd_f1_kernel<T, 2><<<grid, block, 0, stream>>>(
-          gt, ot, ft, dt, g_stride, c, h, w, chunks, inv_c, leaky);
-      break;
-    case 3:
-      corr_bwd_f1_kernel<T, 3><<<grid, block, 0, stream>>>(
-          gt, ot, ft, dt, g_stride, c, h, w, chunks, inv_c, leaky);
-      break;
-    case 4:
-      corr_bwd_f1_kernel<T, 4><<<grid, block, 0, stream>>>(
-          gt, ot, ft, dt, g_stride, c, h, w, chunks, inv_c, leaky);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // corr_bwd_f2_kernel replaces _corr_bwd_f2_kernel :127 (NHWC) and
@@ -1220,6 +1105,499 @@ int launch_bwd_f2(const void* g, const void* out, const void* f1, void* df2,
   }
 }
 
+// ---------------------------------------------------------------------------
+// corr_bwd_f1_kernel replaces _corr_bwd_f1_kernel :104 (NHWC) and
+// _hm_bwd_f1_kernel :232 (H-major) of maskflownet_tpu/ops/pallas/
+// correlation.py, which carry the sum over a sequential dy grid axis in a
+// revisited output block. What bounds it: as corr_bwd_f2, bytes on paper (g
+// and out are D*D planes each against C of f2 and of df1); in practice a
+// block's staging (the copies' issue and latency) and its products and
+// band, a few hundred ns a dy row (PERF.md §6). The first version (a block
+// of 8 channels of an 8 x 32 tile) read g and out ceil(C / 8) times by
+// scalar loads, staged f2 as f32 by a scalar loop and ran the products on
+// the CUDA cores. This design:
+//   * a band GEMM on the tensor cores, one k16 step a tile. Fix a target
+//     row y, an n8 tile of target columns xg.. (xg = x0 - 4 + 8i, so the
+//     block's f2 window starting at x0 - 8 takes 16-byte copies) and one
+//     dy; then df1[c, y, xg+n] += sum_k F[c, k] M'[k, n], F = f2[c, y+dy,
+//     xg-4 : xg+12] (K = 16) and M'[k, n] = g'[(dy+md) D + k - n - 4 + md,
+//     y, xg+n] on the band |k - n - 4| <= md, which lies in the k16 window
+//     for every md <= 4. F is A (channels x 16, ldmatrix from the window at
+//     an 8-aligned column), M' is B. The products are exact as in
+//     corr_bwd_f2: M' is split by the saved output's sign into M+ and M-,
+//     df1 = 1/C (M+ F + leaky M- F) in f32 from two MMAs.
+//   * g' reads at the target pixel, which the block owns, so M' exists in
+//     no buffer: each lane builds its B fragments (8 values a dy row) in
+//     registers from the staged g and out tiles, with no branch: which
+//     values lie on the band is fixed per lane and folded into a mask once.
+//     By rows, the tiles' tap pitch is 8 (mod 16) elements, so the loads of
+//     the lanes on the band hit distinct banks (the lanes off it read their
+//     column's first tap: at most two ways). The dy loop stays rolled.
+//   * a block owns th target rows x 16*wj columns x cpb channels (one warp a
+//     target row and column tile, its cpb / 16 m16 tiles of channels in f32
+//     accumulators, at least 4 warps). It stages its g and out tiles (th x
+//     D*D x (16*wj + 8) each) and the th + 2md rows of f2 that reach them,
+//     all by cp.async in one group: one wait and one barrier, no ring. g and
+//     out are read ceil(C / cpb) times, each f2 row (th + 2md) / th times.
+//   * where one column tile spans the image, each tap's th rows of g and
+//     out and each channel's rows of f2 are contiguous runs: they are
+//     staged as the 16-byte chunks that cover them, whatever W, each run at
+//     its own address modulo 16 bytes (the runs' pitch is their distance in
+//     memory modulo 8 elements, so one offset a block serves them all);
+//     f2's window rows are then laid out from its runs in shared memory
+//     (one more barrier) -- no narrow copies at odd W.
+//   * each df1 value is written once, after the f32 sum over every tap, two
+//     neighbouring columns a store where W is even. The grid comes from
+//     corr_plan, the large dimension on gridDim.x: no batch limit.
+// f32 inputs stage the same tiles and run CUDA-core FMAs: a lane owns one
+// column of a warp's tile and every other channel.
+// ---------------------------------------------------------------------------
+
+constexpr int F1_MAX_WARPS = 8;
+// a block's target columns start F1_SHIFT left of x0 (its f2 window starts
+// at x0 - FP_BWD): each n8 tile's band then fits one aligned k16 step
+constexpr int F1_SHIFT = 4;
+
+struct Bf1Args {
+  const void* g;
+  const void* out;
+  const void* f2;
+  void* df1;
+  long long g_stride;
+  int C, H, W;
+  float inv_c, leaky;
+  int th, wj, cpb;  // the plan
+  int ytiles, xtiles, cblocks;
+  int vf, vg;       // copy widths (elements) of f2 and g/out, row by row
+  int gt, fct;      // tap and channel pitches of the runs (one column tile)
+  FastDiv by_cpb;
+};
+
+// Elements one tap of a staged g (or out) tile may take: th rows of
+// 16*wj + 8 columns (rows staged by column tile) or a run of th rows with
+// its alignment and read-ahead margins (one column tile).
+__host__ __device__ constexpr int f1_tap_elems(int th, int wj) {
+  return th * (16 * wj + 8) > th * 16 * wj + 40 ? th * (16 * wj + 8)
+                                                 : th * 16 * wj + 40;
+}
+
+// f2's th + 2md rows in the window layout (columns x0 - 8 .. x0 + 16*wj:
+// every tile's k16 windows), and (one column tile) each channel's rows as
+// the run they are in memory, before the window is laid out from it
+__host__ __device__ constexpr int f1_f2_elems(int md, int th, int wj,
+                                              int cpb) {
+  return (th + 2 * md) * cpb * pad_ld(16 * wj + FP_BWD);
+}
+__host__ __device__ constexpr int f1_run_elems(int md, int th, int wj,
+                                               int cpb) {
+  return cpb * ((th + 2 * md) * 16 * wj + 32);
+}
+
+// Bytes of dynamic shared memory: f2's rows, the g and out tiles, then
+// (runs: one column tile) f2's runs.
+__host__ __device__ constexpr int bwd_f1_smem_bytes(int esize, int md, int th,
+                                                    int wj, int cpb,
+                                                    int runs) {
+  return (f1_f2_elems(md, th, wj, cpb) +
+          2 * (2 * md + 1) * (2 * md + 1) * f1_tap_elems(th, wj) +
+          (runs ? f1_run_elems(md, th, wj, cpb) : 0)) *
+         esize;
+}
+
+// The least pitch of runs of `len` elements, each staged as the 16-byte
+// chunks that cover it at an offset in [8, 16) that keeps its address
+// modulo 16 bytes, that also holds `reach` elements from the run's start
+// (a warp's read-ahead); rounded up to `stride` (the runs' distance in
+// memory) modulo 8, so that one offset a block serves every run. Mirrored
+// by ops/correlation.py::bwd_f1_run_pitch.
+int f1_run_pitch(int len, int reach, long long stride) {
+  const int need = len + 22 > reach + 15 ? len + 22 : reach + 15;
+  return need + (int)(((stride - need) % 8 + 8) % 8);
+}
+
+// 0xffff in each half of a pair of 2-byte values (low half first) that is
+// not >= 0 -- negative or NaN, not -0 -- the half of the pair that M-
+// takes; the LeakyReLU's own test of the saved output.
+__device__ __forceinline__ uint32_t neg_halves(uint32_t pair, bf16) {
+  return (__uint_as_float(pair << 16) >= 0.f ? 0u : 0xffffu) |
+         (__uint_as_float(pair & 0xffff0000u) >= 0.f ? 0u : 0xffff0000u);
+}
+__device__ __forceinline__ uint32_t neg_halves(uint32_t pair, __half) {
+  const float lo = __half2float(__ushort_as_half((unsigned short)pair));
+  const float hi = __half2float(__ushort_as_half((unsigned short)(pair >> 16)));
+  return (lo >= 0.f ? 0u : 0xffffu) | (hi >= 0.f ? 0u : 0xffff0000u);
+}
+
+// Block blockIdx.x = ((n * ytiles + yt) * xtiles + xt) * cblocks + cb:
+// target rows yt*th.., columns xt*16*wj - F1_SHIFT.., channels cb*cpb...
+// Warp w: target row w % th, column tile w / th (warps past th*wj only
+// stage). MT: the m16 tiles of channels (cpb <= 16 * MT).
+template <typename T, int MD, int MT>
+__global__ void __launch_bounds__(F1_MAX_WARPS * 32, 2)
+    corr_bwd_f1_kernel(const Bf1Args p) {
+  constexpr int D = 2 * MD + 1, DD = D * D;
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int V = 16 / (int)sizeof(T);  // elements a 16-byte chunk
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int TX = 16 * p.wj, SWF = TX + FP_BWD, LDF = pad_ld(SWF);
+  const int R2 = p.th + 2 * MD, cpb = p.cpb;
+  const bool leaky = p.out != nullptr;
+  const bool runs = p.xtiles == 1;
+
+  uint32_t b = blockIdx.x;
+  const int cbk = (int)(b % (uint32_t)p.cblocks);
+  b /= (uint32_t)p.cblocks;
+  const int xt = (int)(b % (uint32_t)p.xtiles);
+  b /= (uint32_t)p.xtiles;
+  const int yt = (int)(b % (uint32_t)p.ytiles);
+  const int n = (int)(b / (uint32_t)p.ytiles);
+  const int x0 = xt * TX, y0 = yt * p.th;
+  const int c_beg = cbk * cpb, nc = min(cpb, p.C - c_beg);
+  const int H = p.H, W = p.W;
+  const int rows = min(p.th, H - y0);  // target rows in the image
+  // f2's rows in the image: q in [q_lo, q_hi), source row y0 - MD + q
+  const int q_lo = max(0, MD - y0), q_hi = min(R2, H - y0 + MD);
+  const size_t plane = (size_t)H * W;
+  const T* f2n =
+      static_cast<const T*>(p.f2) + ((size_t)n * p.C + c_beg) * plane;
+  const T* gn = static_cast<const T*>(p.g) + (size_t)n * p.g_stride;
+  const T* on = leaky ? static_cast<const T*>(p.out) +
+                            (size_t)n * DD * plane
+                      : nullptr;
+
+  const int tap_elems = f1_tap_elems(p.th, p.wj);
+  T* sF = reinterpret_cast<T*>(smem);
+  T* sG = sF + f1_f2_elems(MD, p.th, p.wj, cpb);
+  T* sO = sG + DD * tap_elems;
+  T* sR = sO + DD * tap_elems;  // f2's runs
+  // a staged tile's element (r, tap, column x of the image): s[g0 + tap *
+  // GT + r * GR + x - x0 + XC]; by rows, [r][tap][TX + 8], columns from
+  // x0 - 8 (XC = 8); as runs, x0 = 0 (XC = 0), g0 in [V, 2V) keeps each
+  // run's address modulo 16 bytes
+  const int GT = runs ? p.gt : TX + 8, GR = runs ? W : DD * (TX + 8);
+  const int XC = runs ? 0 : 8;
+  auto run_offset = [&](const T* first) {
+    return V + (int)((reinterpret_cast<uintptr_t>(first) / sizeof(T)) &
+                     (V - 1));
+  };
+  // units u < units of len elements at base + u * stride, each copied as
+  // the 16-byte chunks that cover it to s + g0 + u * pitch (offset by its
+  // address modulo 16 bytes, which g0 and pitch keep)
+  auto stage_runs = [&](const T* base, size_t stride, int units, int len,
+                        T* s, int g0, int pitch) {
+    const int kmax = (len + 2 * V - 2) / V;  // chunks a run at most
+    for (int i = tid; i < units * kmax; i += nthr) {
+      const int u = i / kmax, k = i - u * kmax;
+      const uintptr_t ga = reinterpret_cast<uintptr_t>(base + u * stride);
+      const uintptr_t lo = ga & ~(uintptr_t)15;
+      if (lo + 16 * k >= ga + (uintptr_t)len * sizeof(T)) continue;
+      cp_async(s + g0 + u * pitch - (int)((ga - lo) / sizeof(T)) + k * V,
+               reinterpret_cast<const T*>(lo) + k * V, 16, true);
+    }
+  };
+  int g0g = 0, g0o = 0, g0f = 0;
+  if (runs) {
+    // x0 = 0: the tap planes' rows y0 .. y0 + rows - 1 and each channel's
+    // rows in the image are contiguous runs
+    g0g = run_offset(gn + (size_t)y0 * W);
+    stage_runs(gn + (size_t)y0 * W, plane, DD, rows * W, sG, g0g, GT);
+    if (leaky) {
+      g0o = run_offset(on + (size_t)y0 * W);
+      stage_runs(on + (size_t)y0 * W, plane, DD, rows * W, sO, g0o, GT);
+    }
+    const T* f2r = f2n + (size_t)(y0 - MD + q_lo) * W;
+    g0f = run_offset(f2r);
+    stage_runs(f2r, plane, nc, (q_hi - q_lo) * W, sR, g0f, p.fct);
+  } else {
+    // f2's rows: sF[q][k][col] = f2[c_beg + k, y0 - MD + q, x0 - FP_BWD +
+    // col], zero outside the image and past the block's channels; rows
+    // outside the image are never read and not staged
+    const FastDiv by_cpb = p.by_cpb;
+    stage_rows<T>(stage_map<T>(SWF, p.vf, x0 - FP_BWD, W), R2 * cpb, f2n,
+                  [&](int rho, const T*& src, T*& dst) {
+                    const int q = by_cpb.div(rho), k = rho - q * cpb;
+                    const bool in = q >= q_lo && q < q_hi;
+                    dst = in ? sF + rho * LDF : nullptr;
+                    src = in && k < nc ? f2n + k * plane +
+                                             (size_t)(y0 - MD + q) * W + x0 -
+                                             FP_BWD
+                                       : nullptr;
+                  });
+    // the g and out tiles of the block's target pixels
+    auto tile = [&](const T* base, T* s) {
+      stage_rows<T>(stage_map<T>(TX + 8, p.vg, x0 - 8, W), p.th * DD, base,
+                    [&](int rho, const T*& src, T*& dst) {
+                      const int r = rho / DD, t = rho - r * DD;
+                      const bool in = r < rows;
+                      dst = in ? s + r * GR + t * GT : nullptr;
+                      src = in ? base + t * plane + (size_t)(y0 + r) * W +
+                                     x0 - 8
+                               : nullptr;
+                    });
+    };
+    tile(gn, sG);
+    if (leaky) tile(on, sO);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();  // every copy landed
+  if (runs) {
+    // lay f2's window rows out of the runs, a thread a row: columns
+    // [FP_BWD, FP_BWD + W) from the run (zero past the block's channels),
+    // zero elsewhere; 8 or 4 bytes a copy where W and the runs' offset
+    // allow (the runs' pitch and row starts are then multiples of it)
+    const int tail = FP_BWD + W, tailv = (tail + V - 1) / V * V;
+    const int vb = W * sizeof(T) % 8 == 0 && g0f * sizeof(T) % 8 == 0 ? 8
+                   : W * sizeof(T) % 4 == 0 && g0f * sizeof(T) % 4 == 0
+                       ? 4
+                       : (int)sizeof(T);
+    for (int rho = tid; rho < (q_hi - q_lo) * cpb; rho += nthr) {
+      const int qq = rho / cpb, k = rho - qq * cpb;
+      T* dst = sF + ((q_lo + qq) * cpb + k) * LDF;
+      const T* src = sR + g0f + k * p.fct + qq * W;
+      for (int col = 0; col < FP_BWD; col += V)
+        *reinterpret_cast<uint4*>(dst + col) = make_uint4(0, 0, 0, 0);
+      const bool in = k < nc;
+      if (vb == 8) {
+        for (int x = 0; x < W; x += 8 / sizeof(T))
+          *reinterpret_cast<uint2*>(dst + FP_BWD + x) =
+              in ? *reinterpret_cast<const uint2*>(src + x) : make_uint2(0, 0);
+      } else if (vb == 4) {
+        for (int x = 0; x < W; x += 4 / sizeof(T))
+          *reinterpret_cast<uint32_t*>(dst + FP_BWD + x) =
+              in ? *reinterpret_cast<const uint32_t*>(src + x) : 0u;
+      } else {
+        for (int x = 0; x < W; ++x)
+          dst[FP_BWD + x] = in ? src[x] : from_f32<T>(0.f);
+      }
+      for (int col = tail; col < tailv; ++col) dst[col] = from_f32<T>(0.f);
+      for (int col = tailv; col < SWF; col += V)
+        *reinterpret_cast<uint4*>(dst + col) = make_uint4(0, 0, 0, 0);
+    }
+    __syncthreads();  // the window rows are laid out
+  }
+
+  const int r = warp % p.th, j = warp / p.th;
+  const int y = y0 + r;
+  const int xw = x0 - F1_SHIFT + 16 * j;  // the warp's first target column
+  if (warp >= p.th * p.wj || y >= H || xw >= W) return;
+  T* o = static_cast<T*>(p.df1) + ((size_t)n * p.C + c_beg) * plane +
+         (size_t)y * W;
+
+  if constexpr (kF32) {
+    // lane: column 16j + xl of the block, channels h, h + 2, ...
+    const int xl = lane & 15, h = lane >> 4;
+    const int og = g0g + r * GR + XC - F1_SHIFT + 16 * j + xl;
+    const int oo = g0o + r * GR + XC - F1_SHIFT + 16 * j + xl;
+    float acc[8 * MT];
+#pragma unroll
+    for (int i = 0; i < 8 * MT; ++i) acc[i] = 0.f;
+#pragma unroll 1
+    for (int dyi = 0; dyi < D; ++dyi) {
+      const int ys = y + dyi - MD;
+      if (ys < 0 || ys >= H) continue;
+      const T* fq = sF + (r + dyi) * cpb * LDF + 16 * j + xl + FP_BWD -
+                    F1_SHIFT - MD;
+#pragma unroll
+      for (int bb = 0; bb < D; ++bb) {
+        const int t = dyi * D + bb;
+        float gv = sG[og + t * GT];
+        if (leaky && !(sO[oo + t * GT] >= 0.f)) gv *= p.leaky;
+#pragma unroll
+        for (int i = 0; i < 8 * MT; ++i) {
+          const int c = 2 * i + h;
+          if (c >= nc) break;
+          acc[i] = fmaf(gv, fq[c * LDF + bb], acc[i]);
+        }
+      }
+    }
+    const int x = xw + xl;
+    if (x >= 0 && x < W) {
+#pragma unroll
+      for (int i = 0; i < 8 * MT; ++i) {
+        const int c = 2 * i + h;
+        if (c >= nc) break;
+        o[c * plane + x] = acc[i] * p.inv_c;
+      }
+    }
+  } else {
+    const int gq = lane >> 2, t4 = lane & 3;
+    // The lane's B values: n8 tile nt, target column xw + 8 nt + gq, k =
+    // 8h + 2 t4 + e of the tile's k16 window at window column 16j + 8nt, so
+    // the tap index within a dy row is bb = 8h + 2 t4 + e - gq - (FP_BWD -
+    // F1_SHIFT) + MD, within [0, 2 MD] for some k of every column. Element
+    // (r, dyi*D + bb, xw + 8nt + gq) lies at at[nt][h][e] + dyi*D*GT. Off
+    // the band the lane reads tap dyi*D of its own column instead (in
+    // range) and masks the value to 0: no branch.
+    const int col0 = r * GR + XC - F1_SHIFT + 16 * j + gq;
+    int at[2][2][2];
+    uint32_t on_band[2][2];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        on_band[nt][hh] = 0u;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int bb = 8 * hh + 2 * t4 + e - gq - (FP_BWD - F1_SHIFT) + MD;
+          const bool in = bb >= 0 && bb <= 2 * MD;
+          at[nt][hh][e] = col0 + 8 * nt + (in ? bb * GT : 0);
+          on_band[nt][hh] |= in ? 0xffffu << (16 * e) : 0u;
+        }
+      }
+    const T* pg = sG + g0g;
+    const T* po = sO + g0o;
+    float accp[MT][2][4], accm[MT][2][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) accp[mt][nt][e] = accm[mt][nt][e] = 0.f;
+    // the dy loop stays rolled: a short body keeps the code in the
+    // instruction caches
+#pragma unroll 1
+    for (int dyi = 0; dyi < D; ++dyi) {
+      const int ys = y + dyi - MD;
+      if (ys < 0 || ys >= H) continue;
+      // form M' (M+ and M-) for this dy in registers
+      const int dd = dyi * D * GT;
+      uint32_t bp[2][2], bm[2][2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const uint32_t gv = (bits(pg[at[nt][hh][0] + dd]) |
+                               bits(pg[at[nt][hh][1] + dd]) << 16) &
+                              on_band[nt][hh];
+          if (leaky) {
+            const uint32_t neg =
+                neg_halves(bits(po[at[nt][hh][0] + dd]) |
+                               bits(po[at[nt][hh][1] + dd]) << 16,
+                           T());
+            bp[nt][hh] = gv & ~neg;
+            bm[nt][hh] = gv & neg;
+          } else {
+            bp[nt][hh] = gv;
+            bm[nt][hh] = 0u;
+          }
+        }
+      // the products: one k16 step a tile, A = f2's window from column
+      // 16j + 8nt
+      const T* fq = sF + (r + dyi) * cpb * LDF + 16 * j;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if (16 * mt >= nc) break;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          uint32_t af[4];
+          frag_a_rows(af, fq + 16 * mt * LDF + 8 * nt, LDF);
+          mma<T>(accp[mt][nt], af, bp[nt][0], bp[nt][1]);
+          if (leaky) mma<T>(accm[mt][nt], af, bm[nt][0], bm[nt][1]);
+        }
+      }
+    }
+    // each lane's two neighbouring columns in one store where W is even
+    const float lk = leaky ? p.leaky : 0.f;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int c = 16 * mt + gq + 8 * hh;
+          const int x = xw + 8 * nt + 2 * t4;  // even: a pair is in or out
+          if (c >= nc || x < 0 || x >= W) continue;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            v[e] = (accp[mt][nt][2 * hh + e] + lk * accm[mt][nt][2 * hh + e]) *
+                   p.inv_c;
+          if (W % 2 == 0) {
+            store_vec(o + c * plane + x, v, 2);
+          } else {
+            o[c * plane + x] = from_f32<T>(v[0]);
+            if (x + 1 < W) o[c * plane + x + 1] = from_f32<T>(v[1]);
+          }
+        }
+  }
+}
+
+template <typename T, int MD, int MT>
+int launch_bwd_f1_mt(Bf1Args a, int n, cudaStream_t stream) {
+  static int allowed = 0;
+  const int smem = bwd_f1_smem_bytes((int)sizeof(T), MD, a.th, a.wj, a.cpb,
+                                     a.xtiles == 1);
+  if (int e = allow_smem(corr_bwd_f1_kernel<T, MD, MT>, smem, allowed))
+    return e;
+  const long long blocks = (long long)n * a.ytiles * a.xtiles * a.cblocks;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  corr_bwd_f1_kernel<T, MD, MT>
+      <<<(unsigned)blocks, 32 * block_warps(a.th * a.wj), smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int MD>
+int launch_bwd_f1_md(Bf1Args a, int n, cudaStream_t stream) {
+  if (a.cpb <= 16) return launch_bwd_f1_mt<T, MD, 1>(a, n, stream);
+  if (a.cpb <= 32) return launch_bwd_f1_mt<T, MD, 2>(a, n, stream);
+  return launch_bwd_f1_mt<T, MD, 4>(a, n, stream);
+}
+
+template <typename T>
+int launch_bwd_f1(const void* g, const void* out, const void* f2, void* df1,
+                  long long g_stride, int n, int c, int h, int w, int md,
+                  float leaky, int th, int wj, int cpb, cudaStream_t stream) {
+  Bf1Args a;
+  a.g = g;
+  a.out = out;
+  a.f2 = f2;
+  a.df1 = df1;
+  a.g_stride = g_stride;
+  a.C = c;
+  a.H = h;
+  a.W = w;
+  a.inv_c = (float)(1.0 / c);
+  a.leaky = leaky;
+  a.th = th;
+  a.wj = wj;
+  a.cpb = cpb;
+  a.ytiles = (h + th - 1) / th;
+  a.xtiles = (w + F1_SHIFT + 16 * wj - 1) / (16 * wj);
+  a.cblocks = (c + cpb - 1) / cpb;
+  a.by_cpb = fast_div(cpb);
+  const int r2 = th + 2 * md < h ? th + 2 * md : h;
+  a.gt = f1_run_pitch(th * w, (th - 1) * w + 16 * wj - F1_SHIFT,
+                      (long long)h * w);
+  a.fct = f1_run_pitch(r2 * w, 0, (long long)h * w);
+  if (a.xtiles == 1 && (a.gt > f1_tap_elems(th, wj) ||
+                        a.fct * cpb > f1_run_elems(md, th, wj, cpb)))
+    return (int)cudaErrorInvalidValue;
+  const int es = (int)sizeof(T);
+  const long long dd = (long long)(2 * md + 1) * (2 * md + 1);
+  a.vf = copy_width(f2, (long long)c * h * w, w, es, 16 / es);
+  a.vg = copy_width(g, g_stride, w, es, 16 / es);
+  if (out != nullptr) {
+    const int vo = copy_width(out, dd * h * w, w, es, 16 / es);
+    a.vg = vo < a.vg ? vo : a.vg;
+  }
+  switch (md) {
+    case 1:
+      return launch_bwd_f1_md<T, 1>(a, n, stream);
+    case 2:
+      return launch_bwd_f1_md<T, 2>(a, n, stream);
+    case 3:
+      return launch_bwd_f1_md<T, 3>(a, n, stream);
+    case 4:
+      return launch_bwd_f1_md<T, 4>(a, n, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 bool bad_shape(int n, int c, int h, int w, int md) {
   return n <= 0 || c <= 0 || h <= 0 || w <= 0 || md < 1 || md > 4;
 }
@@ -1259,31 +1637,33 @@ extern "C" int mfn_corr_fwd(const void* f1, const void* f2, void* out, int n,
 // g: (N, D*D, H, W) images g_stride elements apart, each a dense block;
 // out (the forward's saved output, NULL without the LeakyReLU: leaky
 // unread): dense (N, D*D, H, W); f2 / f1 and the result: dense (N, C, H, W);
-// one dtype (0 = f32, 1 = bf16, 2 = f16). Return as mfn_corr_fwd.
+// one dtype (0 = f32, 1 = bf16, 2 = f16). The tiling (th, wj, cpb) comes
+// from corr_plan: th target rows and 16*wj columns a block, cpb channels (a
+// multiple of 16, <= 64) a block, th*wj <= 8 warps. Return as mfn_corr_fwd.
 extern "C" int mfn_corr_bwd_f1(const void* g, const void* out, const void* f2,
                                void* df1, int n, int c, int h, int w, int md,
                                int dtype, float leaky, long long g_stride,
-                               void* stream) {
-  if (bad_shape(n, c, h, w, md)) return (int)cudaErrorInvalidValue;
+                               int th, int wj, int cpb, void* stream) {
+  if (bad_shape(n, c, h, w, md) || th < 1 || wj < 1 || cpb < 16 ||
+      cpb > 64 || cpb % 16 || th * wj > F1_MAX_WARPS)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
       return launch_bwd_f1<float>(g, out, f2, df1, g_stride, n, c, h, w, md,
-                                  leaky, s);
+                                  leaky, th, wj, cpb, s);
     case 1:
       return launch_bwd_f1<bf16>(g, out, f2, df1, g_stride, n, c, h, w, md,
-                                 leaky, s);
+                                 leaky, th, wj, cpb, s);
     case 2:
       return launch_bwd_f1<__half>(g, out, f2, df1, g_stride, n, c, h, w, md,
-                                   leaky, s);
+                                   leaky, th, wj, cpb, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// As mfn_corr_bwd_f1, with f1 in place of f2; the tiling (th, wj, cpb)
-// comes from corr_plan: th target rows and 16*wj columns a block, cpb
-// channels (a multiple of 16, <= 64) a block, th*wj <= 8 warps.
+// As mfn_corr_bwd_f1, with f1 in place of f2 and th*wj <= 4 warps.
 extern "C" int mfn_corr_bwd_f2(const void* g, const void* out, const void* f1,
                                void* df2, int n, int c, int h, int w, int md,
                                int dtype, float leaky, long long g_stride,
@@ -1308,12 +1688,15 @@ extern "C" int mfn_corr_bwd_f2(const void* g, const void* out, const void* f1,
 }
 
 // Dynamic shared memory (bytes) a launch takes: kind 0 the forward (a..d =
-// th, wj, ndg, kc), kind 1 corr_bwd_f2 (a..c = th, wj, cpb); esize the
-// element size (4 or 2). ops/correlation.py computes the same.
+// th, wj, ndg, kc), kind 1 corr_bwd_f2 (a..c = th, wj, cpb) and kind 2
+// corr_bwd_f1 (a..d = th, wj, cpb, whether one column tile spans the
+// image); esize the element size (4 or 2). ops/correlation.py computes the
+// same.
 extern "C" int mfn_corr_smem_bytes(int kind, int esize, int md, int a, int b,
                                    int c, int d) {
-  return kind == 0 ? fwd_smem_bytes(esize, md, a, b, c, d)
-                   : bwd_smem_bytes(esize, md, a, b, c);
+  return kind == 0   ? fwd_smem_bytes(esize, md, a, b, c, d)
+         : kind == 1 ? bwd_smem_bytes(esize, md, a, b, c)
+                     : bwd_f1_smem_bytes(esize, md, a, b, c, d);
 }
 
 extern "C" const char* mfn_cuda_error_string(int err) {

@@ -118,6 +118,11 @@ MIN_WARPS = 4       # warps a block at least (those past the tasks stage)
 BWD_CHANNELS = 64   # channels a corr_bwd_f2 block owns at most
 BWD_K = 32          # source pixels of a corr_bwd_f2 tile (BK)
 BWD_STAGES = 3      # staged source rows a corr_bwd_f2 block (BST)
+F1_MAX_WARPS = 8    # warps a corr_bwd_f1 block at most
+F1_SHIFT = 4        # corr_bwd_f1's target columns start at x0 - 4
+# a corr_bwd_f1 block aims at two blocks a multiprocessor: at most this much
+# shared memory in a 2-byte type (the H100's 228 KB, 1 KB a block reserved)
+F1_SMEM_AIM = 113 * 1024
 MAX_SMEM = 232448   # dynamic shared memory a block may take on an H100
 
 
@@ -164,6 +169,33 @@ def bwd_smem_bytes(esize: int, md: int, th: int, wj: int, cpb: int) -> int:
     return BWD_STAGES * stage * esize + th * wj * 16 * (BWD_K + 8) * 4
 
 
+def _f1_tap_elems(th: int, wj: int) -> int:
+    """csrc's ``f1_tap_elems``: elements one tap of a staged g (or out)
+    tile may take, by rows or as a run."""
+    return max(th * (16 * wj + 8), th * 16 * wj + 40)
+
+
+def bwd_f1_smem_bytes(esize: int, md: int, th: int, wj: int, cpb: int,
+                      runs: bool) -> int:
+    """Dynamic shared memory of one ``corr_bwd_f1`` block (csrc's
+    ``bwd_f1_smem_bytes``): the th + 2md rows of f2 in the window layout,
+    the g and out tiles, and, when one column tile spans the image
+    (``runs``), f2's rows as runs."""
+    d = 2 * md + 1
+    return ((th + 2 * md) * cpb * _pad_ld(16 * wj + BWD_PAD)
+            + 2 * d * d * _f1_tap_elems(th, wj)
+            + (cpb * ((th + 2 * md) * 16 * wj + 32) if runs else 0)) * esize
+
+
+def bwd_f1_run_pitch(length: int, reach: int, stride: int) -> int:
+    """csrc's ``f1_run_pitch``: the pitch (elements) of runs of ``length``
+    elements staged as 16-byte chunks at an offset in [8, 16), holding
+    ``reach`` elements from a run's start, rounded up to ``stride`` (the
+    runs' distance in memory) modulo 8."""
+    need = max(length + 22, reach + 15)
+    return need + (stride - need) % 8
+
+
 class CorrPlan(NamedTuple):
     """The tiling of ``csrc/correlation.cu`` for one shape and md.
 
@@ -173,7 +205,10 @@ class CorrPlan(NamedTuple):
       ``fwd_cs`` ranks a cluster (1: no cluster);
     * ``corr_bwd_f2``: blocks of ``bwd_th`` target rows x ``16 * bwd_wj``
       columns (one warp each, at least ``MIN_WARPS``) x ``bwd_cpb``
-      channels.
+      channels;
+    * ``corr_bwd_f1``: the same with ``f1_th``, ``f1_wj``, ``f1_cpb`` (up
+      to ``F1_MAX_WARPS`` warps), its tiles small enough that two blocks
+      fit a multiprocessor where a split allows.
 
     ``*_blocks`` and ``*_threads`` size each grid; ``*_floor`` is True
     when the plan launches fewer than two blocks a multiprocessor because
@@ -194,6 +229,12 @@ class CorrPlan(NamedTuple):
     bwd_blocks: int
     bwd_threads: int
     bwd_floor: bool
+    f1_th: int
+    f1_wj: int
+    f1_cpb: int
+    f1_blocks: int
+    f1_threads: int
+    f1_floor: bool
 
 
 def _fwd_tiling(n, c, h, w, md, sms):
@@ -244,27 +285,50 @@ def _fwd_tiling(n, c, h, w, md, sms):
             32 * max(MIN_WARPS, th * wj * ndg), b < 2 * sms)
 
 
-def _bwd_tiling(n, c, h, w, md, sms):
-    wj = 2 if w > 16 else 1
-    th = max(1, min(h, BWD_MAX_WARPS // wj))
+def _bwd_tiling(n, c, h, w, sms, max_warps, fits=lambda th, wj, cpb: True,
+                shift=0):
+    """A gradient kernel's blocks of th target rows x 16*wj columns x cpb
+    channels, one warp a row and column tile (at most ``max_warps``); the
+    column tiles start ``shift`` left of column 0."""
+    wj = 2 if w + shift > 16 else 1
+    th = max(1, min(h, max_warps // wj))
     cpb = min(BWD_CHANNELS, _cdiv(c, 16) * 16)
 
     def blocks(th, cpb):
-        return n * _cdiv(h, th) * _cdiv(w, 16 * wj) * _cdiv(c, cpb)
+        return n * _cdiv(h, th) * _cdiv(w + shift, 16 * wj) * _cdiv(c, cpb)
 
-    # split until two blocks a multiprocessor: channels down to 32 a block,
-    # then target rows, then channels down to 16
-    while blocks(th, cpb) < 2 * sms:
+    def split(th, cpb):
+        # channels down to 32 a block, then target rows, then channels
+        # down to 16; None when every split is taken
         if cpb > 32:
-            cpb = 32
-        elif th > 1:
-            th = _cdiv(th, 2)
-        elif cpb > 16:
-            cpb = 16
-        else:
-            break
+            return th, 32
+        if th > 1:
+            return _cdiv(th, 2), cpb
+        if cpb > 16:
+            return th, 16
+        return None
+
+    # split until the tiles fit, then until two blocks a multiprocessor
+    for done in (lambda th, cpb: fits(th, wj, cpb),
+                 lambda th, cpb: blocks(th, cpb) >= 2 * sms):
+        while not done(th, cpb) and (nxt := split(th, cpb)) is not None:
+            th, cpb = nxt
     b = blocks(th, cpb)
     return th, wj, cpb, b, 32 * max(MIN_WARPS, th * wj), b < 2 * sms
+
+
+def f1_runs(w: int, wj: int) -> bool:
+    """Whether corr_bwd_f1's one column tile spans an image of width w,
+    so that it stages g, out and f2 as runs."""
+    return w + F1_SHIFT <= 16 * wj
+
+
+def _f1_fits(md, w):
+    """Whether a corr_bwd_f1 tile leaves two blocks a multiprocessor in a
+    2-byte type and fits one block in f32."""
+    return lambda th, wj, cpb: all(
+        bwd_f1_smem_bytes(es, md, th, wj, cpb, f1_runs(w, wj)) <= most
+        for es, most in ((2, F1_SMEM_AIM), (4, MAX_SMEM)))
 
 
 @functools.lru_cache(maxsize=1024)
@@ -275,7 +339,9 @@ def corr_plan(n: int, c: int, h: int, w: int, md: int,
     two blocks a multiprocessor or every split is taken (the latency floor
     of the coarse levels, ``*_floor``)."""
     return CorrPlan(*_fwd_tiling(n, c, h, w, md, sms),
-                    *_bwd_tiling(n, c, h, w, md, sms))
+                    *_bwd_tiling(n, c, h, w, sms, BWD_MAX_WARPS),
+                    *_bwd_tiling(n, c, h, w, sms, F1_MAX_WARPS,
+                                 _f1_fits(md, w), F1_SHIFT))
 
 
 @functools.cache
@@ -294,14 +360,11 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
         + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.mfn_corr_fwd.restype = ctypes.c_int
-    lib.mfn_corr_bwd_f1.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p])
-    lib.mfn_corr_bwd_f2.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_longlong] + [ctypes.c_int] * 3
-        + [ctypes.c_void_p])
     for fn in (lib.mfn_corr_bwd_f1, lib.mfn_corr_bwd_f2):
+        fn.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+            + [ctypes.c_float, ctypes.c_longlong] + [ctypes.c_int] * 3
+            + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib.mfn_corr_smem_bytes.argtypes = [ctypes.c_int] * 7
     lib.mfn_corr_smem_bytes.restype = ctypes.c_int
@@ -409,25 +472,20 @@ def _bwd(name: str, g, feat, out, md, leaky):
             feat.data_ptr(), grad.data_ptr(), n, c, h, w, md,
             _DTYPE_CODES[feat.dtype], 0.0 if leaky is None else float(leaky),
             g.stride(0))
+    plan = _plan_for(feat, md)
+    tiling = ((plan.f1_th, plan.f1_wj, plan.f1_cpb) if name == "corr_bwd_f1"
+              else (plan.bwd_th, plan.bwd_wj, plan.bwd_cpb))
     with torch.cuda.device(feat.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if name == "corr_bwd_f1":
-            if n * _cdiv(c, 8) > 65535:
-                raise ValueError(f"{name}: N * ceil(C / 8) = "
-                                 f"{n * _cdiv(c, 8)} blocks exceed the "
-                                 "grid's z limit")
-            err = lib.mfn_corr_bwd_f1(*args, stream)
-        else:
-            plan = _plan_for(feat, md)
-            err = lib.mfn_corr_bwd_f2(*args, plan.bwd_th, plan.bwd_wj,
-                                      plan.bwd_cpb, stream)
+        err = getattr(lib, f"mfn_{name}")(
+            *args, *tiling, torch.cuda.current_stream().cuda_stream)
     _raise_on(name, err)
     return grad
 
 
 def corr_bwd_f1(g: torch.Tensor, f2: torch.Tensor, out: torch.Tensor | None,
                 md: int, leaky: float | None = None) -> torch.Tensor:
-    """Launch the CUDA kernel for d cost / d f1 on the current stream.
+    """Launch the CUDA kernel for d cost / d f1 on the current stream,
+    tiled by :func:`corr_plan`.
 
     g (the cotangent): (N,(2md+1)^2,H,W), each image one dense block (a
     channel slice of a larger tensor is taken as it is); out (the
@@ -444,9 +502,8 @@ corr_bwd_f1.launches = 0
 
 def corr_bwd_f2(g: torch.Tensor, f1: torch.Tensor, out: torch.Tensor | None,
                 md: int, leaky: float | None = None) -> torch.Tensor:
-    """Launch the CUDA kernel for d cost / d f2, tiled by
-    :func:`corr_plan`; arguments as :func:`corr_bwd_f1`, with f1 in place
-    of f2. Returns df2."""
+    """Launch the CUDA kernel for d cost / d f2; arguments as
+    :func:`corr_bwd_f1`, with f1 in place of f2. Returns df2."""
     df2 = _bwd("corr_bwd_f2", g, f1, out, md, leaky)
     corr_bwd_f2.launches += 1
     return df2

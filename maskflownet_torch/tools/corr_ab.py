@@ -2,7 +2,7 @@
 ``csrc/correlation.cu`` on one card, in turns, and sweep the tiling plan.
 
     python3 -m maskflownet_torch.tools.corr_ab --parent DIR/correlation.cu \\
-        [--sweep] [--out DIR/corr_ab.json]
+        [--kernels corr_bwd_f1 ...] [--sweep] [--out DIR/corr_ab.json]
 
 ``--parent`` names a ``correlation.cu`` of the first design (its C
 interface: ``mfn_corr_fwd(f1, f2, out, n, c, h, w, md, dtype, leaky,
@@ -13,9 +13,10 @@ commit with ``git show``. It is built here with the port's nvcc flags into
 three main paths (bf16, the LeakyReLU fused), each kernel pair is timed
 with the L2 flushed before each call in the order parent, current,
 current, parent; the two outputs are held to each other (bf16 tolerance).
-``--sweep`` also times the current kernels under other plans (the warps a
-block aims for), to rank ``corr_plan``'s knobs. Prints one line a row and
-writes every row as JSON to ``--out``.
+``--kernels`` keeps only the named kernels. ``--sweep`` also times the
+current kernels under other plans (the warps a block aims for), to rank
+``corr_plan``'s knobs. Prints one line a row and writes every row as JSON
+to ``--out``.
 """
 
 from __future__ import annotations
@@ -119,10 +120,14 @@ def parent_call(lib, name, args):
     return out
 
 
-def rows_for(gen, flush, parent, sweep):
+KERNELS = ("corr_fwd", "corr_bwd_f1", "corr_bwd_f2")
+
+
+def rows_for(gen, flush, parent, sweep, kernels=KERNELS):
     rows = []
-    jobs = [("corr_fwd", p) for p in FWD_PATHS] + [
+    jobs = [(k, p) for k, p in [("corr_fwd", p) for p in FWD_PATHS] + [
         (k, p) for p in BWD_PATHS for k in ("corr_bwd_f1", "corr_bwd_f2")]
+        if k in kernels]
     for name, (path, md, levels) in jobs:
         for lvl, shape in levels:
             n, c, h, w = shape
@@ -157,7 +162,7 @@ def rows_for(gen, flush, parent, sweep):
                            parent_ms_turns=[a, a2], ms_turns=[b, b2])
             else:
                 row["ms"] = cold_ms(cur, flush)
-            if sweep and name != "corr_bwd_f1":
+            if sweep:
                 row["sweep"] = sweep_plans(name, shape, md, cur, flush)
             rows.append(row)
             print(json.dumps(row), flush=True)
@@ -166,9 +171,10 @@ def rows_for(gen, flush, parent, sweep):
 
 def sweep_plans(name, shape, md, cur, flush):
     """The current kernel's time under the plans fewer warps a block give
-    (corr_plan's FWD_MAX_WARPS, or BWD_MAX_WARPS for corr_bwd_f2)."""
-    knob = "FWD_MAX_WARPS" if name == "corr_fwd" else "BWD_MAX_WARPS"
-    values = (4, 6, 8) if name == "corr_fwd" else (2, 4)
+    (corr_plan's FWD_MAX_WARPS, BWD_MAX_WARPS or F1_MAX_WARPS)."""
+    knob, values = {"corr_fwd": ("FWD_MAX_WARPS", (4, 6, 8)),
+                    "corr_bwd_f2": ("BWD_MAX_WARPS", (2, 4)),
+                    "corr_bwd_f1": ("F1_MAX_WARPS", (4, 8))}[name]
     kept = getattr(corr, knob)
     res = {}
     try:
@@ -188,6 +194,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="an earlier csrc/correlation.cu to time against")
+    ap.add_argument("--kernels", nargs="+", choices=KERNELS,
+                    default=KERNELS, help="the kernels to time")
     ap.add_argument("--sweep", action="store_true",
                     help="also time the current kernels under other plans")
     ap.add_argument("--out", type=Path, default=None)
@@ -205,7 +213,7 @@ def main(argv=None) -> int:
     flush = torch.ones(max(l2, 50 * 2 ** 20), dtype=torch.float32,
                        device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = rows_for(gen, flush, parent, args.sweep)
+    rows = rows_for(gen, flush, parent, args.sweep, args.kernels)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"device": smi, "rows": rows},

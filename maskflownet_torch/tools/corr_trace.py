@@ -4,17 +4,22 @@
 
 Builds a copy of ``csrc/correlation.cu`` into ``build/corr_trace/`` with
 ``%globaltimer`` stamps (thread 0 of each block) at its phase boundaries
-and the SM each block ran on, launches ``corr_fwd`` and ``corr_bwd_f2`` at
-the S step's levels and the cascade step's level 2 (bf16, the LeakyReLU
-fused, the L2 flushed before the call, the plan ``corr_plan`` gives), and
-prints for each launch the medians over its blocks:
+and the SM each block ran on, launches ``corr_fwd``, ``corr_bwd_f2`` and
+``corr_bwd_f1`` at the S step's levels and the cascade step's level 2
+(bf16, the LeakyReLU fused, the L2 flushed before the call, the plan
+``corr_plan`` gives), and prints for each launch the medians over its
+blocks:
 
 * forward: start to chunk 0 landed (block start, staging issue, the
   loads' latency), the products, the band written to shared memory, and
   the epilogue's sums and stores;
 * ``corr_bwd_f2``: a whole block, and for each source row but the first
   and last, the copies of the next rows issued, M assembled, the barrier
-  after it, and the products with the wait for the next row.
+  after it, and the products with the wait for the next row;
+* ``corr_bwd_f1`` (its first warp): a whole block, every copy issued,
+  the wait for them and the barrier, f2's window rows laid out from their
+  runs (one column tile), then for each dy row M' formed in registers and
+  the products, and the stores.
 
 The stamps cost a few instructions a phase; the port never loads this
 build. The card's name and power limit head the output.
@@ -34,7 +39,7 @@ from maskflownet_torch.ops import correlation as corr
 
 LEVELS = [(4, (8, 32, 80, 112)), (4, (8, 64, 40, 56)), (4, (8, 96, 20, 28)),
           (4, (8, 128, 10, 14)), (4, (8, 196, 5, 7)), (2, (4, 32, 80, 192))]
-SLOTS = 8  # stamps a block
+SLOTS = 16  # stamps a block
 
 PRELUDE = r"""
 __device__ unsigned long long g_trace[1 << 20];
@@ -50,8 +55,8 @@ __device__ __forceinline__ unsigned smid() {
 }
 #define TR_AT(i, v)                                                \
   do {                                                             \
-    if (threadIdx.x == 0 && blockIdx.x < (1 << 17))                \
-      g_trace[blockIdx.x * 8 + (i)] = (v);                         \
+    if (threadIdx.x == 0 && blockIdx.x < (1 << 16))                \
+      g_trace[blockIdx.x * 16 + (i)] = (v);                        \
   } while (0)
 #define TR(i) TR_AT(i, gtime())
 """
@@ -99,6 +104,37 @@ EDITS = [
      "  __syncthreads();\n  TR(4);\n  TR_AT(1, S);\n  TR_AT(2, a_issue);\n"
      "  TR_AT(3, a_build);\n  TR_AT(5, a_barb);\n  TR_AT(6, a_mma);\n"
      "  if (!live) return;\n  // each lane"),
+    # corr_bwd_f1 (thread 0, of warp 0): 0 start, 1 every copy issued, 2
+    # landed (after the barrier), 3 f2's window rows laid out (one column
+    # tile; else as 2), 4 stores done, 5 M' formed and 6 products (sums
+    # over its dy rows), 8 its dy rows, 7 the SM
+    ("    corr_bwd_f1_kernel(const Bf1Args p) {\n",
+     "    corr_bwd_f1_kernel(const Bf1Args p) {\n  TR(0);\n"
+     "  TR_AT(7, smid());\n  unsigned long long a_form = 0, a_mma = 0, "
+     "tq = 0, n_dy = 0;\n"),
+    ("  cp_async_commit();\n  cp_async_wait<0>();\n  __syncthreads();  // "
+     "every copy landed\n",
+     "  TR(1);\n  cp_async_commit();\n  cp_async_wait<0>();\n"
+     "  __syncthreads();  // every copy landed\n  TR(2);\n"),
+    ("    __syncthreads();  // the window rows are laid out\n  }\n",
+     "    __syncthreads();  // the window rows are laid out\n  }\n  TR(3);\n"),
+    ("      // form M' (M+ and M-) for this dy in registers\n",
+     "      const unsigned long long tf0 = gtime();\n"
+     "      if (tq) a_mma += tf0 - tq;\n      ++n_dy;\n"
+     "      // form M' (M+ and M-) for this dy in registers\n"),
+    ("      // the products: one k16 step a tile",
+     "      tq = gtime();\n      a_form += tq - tf0;\n"
+     "      // the products: one k16 step a tile"),
+    ("    // each lane's two neighbouring columns in one store where W is even\n"
+     "    const float lk",
+     "    if (tq) a_mma += gtime() - tq;\n    TR_AT(5, a_form);\n"
+     "    TR_AT(6, a_mma);\n    TR_AT(8, n_dy);\n"
+     "    // each lane's two neighbouring columns in one store where W is "
+     "even\n    const float lk"),
+    ("            if (x + 1 < W) o[c * plane + x + 1] = from_f32<T>(v[1]);\n"
+     "          }\n        }\n  }\n}\n",
+     "            if (x + 1 < W) o[c * plane + x + 1] = from_f32<T>(v[1]);\n"
+     "          }\n        }\n    TR(4);\n  }\n}\n"),
 ]
 EXPORT = ('\nextern "C" int mfn_trace_copy(void* dst, long long bytes) {\n'
           '  return (int)cudaMemcpyFromSymbol(dst, g_trace, bytes);\n}\n')
@@ -126,10 +162,11 @@ def build() -> ctypes.CDLL:
     lib.mfn_corr_fwd.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float]
         + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    lib.mfn_corr_bwd_f2.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_longlong] + [ctypes.c_int] * 3
-        + [ctypes.c_void_p])
+    for fn in (lib.mfn_corr_bwd_f1, lib.mfn_corr_bwd_f2):
+        fn.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+            + [ctypes.c_float, ctypes.c_longlong] + [ctypes.c_int] * 3
+            + [ctypes.c_void_p])
     lib.mfn_trace_copy.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
     return lib
 
@@ -186,6 +223,7 @@ def main() -> int:
         stream = torch.cuda.current_stream().cuda_stream
         res = torch.empty_like(out)
         df2 = torch.empty_like(f1)
+        df1 = torch.empty_like(f1)
         calls = {
             "corr_fwd": lambda: lib.mfn_corr_fwd(
                 f1.data_ptr(), f2.data_ptr(), res.data_ptr(), n, c, h, w, md,
@@ -194,7 +232,11 @@ def main() -> int:
             "corr_bwd_f2": lambda: lib.mfn_corr_bwd_f2(
                 g.data_ptr(), out.data_ptr(), f1.data_ptr(), df2.data_ptr(),
                 n, c, h, w, md, 1, 0.1, g.stride(0), plan.bwd_th,
-                plan.bwd_wj, plan.bwd_cpb, stream)}
+                plan.bwd_wj, plan.bwd_cpb, stream),
+            "corr_bwd_f1": lambda: lib.mfn_corr_bwd_f1(
+                g.data_ptr(), out.data_ptr(), f2.data_ptr(), df1.data_ptr(),
+                n, c, h, w, md, 1, 0.1, g.stride(0), plan.f1_th, plan.f1_wj,
+                plan.f1_cpb, stream)}
         for name, call in calls.items():
             for _ in range(2):          # the second launch is the one read
                 flush.sum()
@@ -202,8 +244,9 @@ def main() -> int:
                 if call():
                     raise RuntimeError(f"corr_trace: {name} launch failed")
                 torch.cuda.synchronize()
-            blocks = plan.fwd_blocks if name == "corr_fwd" else \
-                plan.bwd_blocks
+            blocks = {"corr_fwd": plan.fwd_blocks,
+                      "corr_bwd_f2": plan.bwd_blocks,
+                      "corr_bwd_f1": plan.f1_blocks}[name]
             rows = stamps(lib, blocks)
             span = max(r[4] for r in rows) - min(r[0] for r in rows)
             whole = med_us([r[4] - r[0] for r in rows])
@@ -216,6 +259,20 @@ def main() -> int:
                       f"{med_us([r[2] - r[1] for r in rows])}, band "
                       f"{med_us([r[3] - r[2] for r in rows])}, epilogue "
                       f"{med_us([r[4] - r[3] for r in rows])}", flush=True)
+            elif name == "corr_bwd_f1":
+                dys = [max(1, r[8]) for r in rows]
+                print(f"{head}; every copy issued "
+                      f"{med_us([r[1] - r[0] for r in rows])} us, landed "
+                      f"{med_us([r[2] - r[1] for r in rows])} after, f2's "
+                      f"windows laid out {med_us([r[3] - r[2] for r in rows])}"
+                      f"; a dy row of warp 0 ({statistics.median(dys)} of "
+                      f"them): M' formed "
+                      f"{med_us([r[5] / k for r, k in zip(rows, dys)])}, "
+                      f"products "
+                      f"{med_us([r[6] / k for r, k in zip(rows, dys)])}; "
+                      "stores "
+                      + med_us([r[4] - r[3] - r[5] - r[6] for r in rows]),
+                      flush=True)
             else:
                 mid = [max(1, r[1] - 2) for r in rows]
                 per = [[r[j] / k for r, k in zip(rows, mid)]
