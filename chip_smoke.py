@@ -78,7 +78,26 @@ Phases, each timed on its own line:
      gradients each ``deform_bwd`` is asked for (never dx; dweight only at
      level 6), the head bitwise unchanged, a finite loss, ms/step,
      samples/s and peak memory. Then one f32 MaskFlownet_S step with
-     ``deform="kernel"`` (the full deform backward) against ``warpconv``.
+     ``deform="kernel"`` (the full deform backward) against ``warpconv``;
+  9. input: the FlyingChairs input path. A FlyingChairs tree of 16
+     synthetic pairs at 384x512 (``data.synthetic``, ``data.codecs``) in a
+     temporary directory, read back by ``data.chairs`` bitwise; the CLI's
+     ``TrainLoader([Dataset(train)] * 8, 8, (384, 512))`` into a
+     ``DeviceBatchCache`` of 8 slots with the (B,1,1,1) mask appended, and
+     the chairs presets' augmented bf16 S step (384x512 -> 320x448)
+     through ``Trainer.train_batch_device``: warm-up launches checked, no
+     synchronisation from ``cache.get()`` through ``prepare`` (whether the
+     whole step synchronises is printed), then ms/step, samples/s and
+     peak memory with exact launch counts through the cache while it
+     refreshes (``echo_factor``, ``transfers``), through the cache only
+     serving, through ``train_batch`` on host NCHW batches (a pageable
+     copy each step) and through ``DevicePrefetcher``; served tensors
+     checked against the host's checksums of their transfer index while
+     2 slots (and a prefetcher of depth 2) are replaced under the steps;
+     an f32 step of ``train_batch_device`` on a cached batch against
+     ``train_batch`` on the same host batch with the same draws (loss and
+     epe bitwise), and the card's against the CPU's on a 96x128 corner;
+     a batch's bytes and its pinned and pageable copy times.
 The card-vs-CPU comparisons run the deform kernels' form on both sides
 (``deform="kernel"``: its plain pair on the CPU), so that both take the
 same sample coordinates.
@@ -100,14 +119,19 @@ without that line; so does a machine without CUDA.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from unittest import mock
 
+import numpy as np
 import torch
 
 import maskflownet_torch.models.maskflownet as model_module
@@ -116,6 +140,8 @@ import maskflownet_torch.ops.deform as deform_module
 from maskflownet_torch.augment import draw_geometry
 from maskflownet_torch.augment.geometry import sample_grids
 from maskflownet_torch.config import presets
+from maskflownet_torch.data import (Dataset, DeviceBatchCache, TrainLoader,
+                                    chairs, codecs, synthetic, with_mask)
 from maskflownet_torch.inference import Predictor
 from maskflownet_torch.models import HEAD_SCOPE, ModelConfig, init_params
 from maskflownet_torch.ops import _build
@@ -129,8 +155,9 @@ from maskflownet_torch.ops.deform import (_warpconv, deform_bwd,
                                           deform_bwd_plain, deform_fwd,
                                           deform_fwd_plain, weight_to_w9)
 from maskflownet_torch.ops.warp import base_grid, normalized_to_pixels
+from maskflownet_torch.parallel import DevicePrefetcher
 from maskflownet_torch.tools import grad_parity
-from maskflownet_torch.training import TrainSettings, Trainer
+from maskflownet_torch.training import TrainSettings, Trainer, nchw_batch
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.float32: 67e12,       # f32 outside the tensor cores
@@ -250,6 +277,15 @@ KERNELS = (corr_fwd, corr_bwd_f1, corr_bwd_f2, deform_fwd, deform_bwd,
 # kernel vs warpconv leaves out the coordinates, which warpconv takes one
 # pixel further on
 BRANCHES = ("coords", "leaky", "corr")
+# the input phase: a FlyingChairs tree of INPUT_SAMPLES synthetic pairs,
+# the CLI's loader ([Dataset(train)] * batch) into a cache of INPUT_SLOTS
+# slots, INPUT_TIMED timed steps a way of feeding the step;
+# INTEGRITY_STEPS steps on 2 slots replaced as fast as the refresh thread
+# can (``integrity``), the compute stream sleeping SLEEP_CYCLES (~10 ms at
+# the H100's 1.98 GHz) between a step and the checksums of its batch, so
+# that a slot whose memory a later copy took would be read after that copy
+INPUT_SAMPLES, INPUT_SLOTS, INPUT_TIMED = 16, 8, 20
+INTEGRITY_STEPS, SLEEP_CYCLES = 30, 20_000_000
 # every (kernel, shape, md or Cout, dtype[, needs]) that a check held
 # against its plain version (keys as ``launch_key`` makes them); each main
 # path's launches must lie in it
@@ -1584,6 +1620,398 @@ def drive_cascade_train(gen):
     return launches, ms_step, b * 1e3 / ms_step
 
 
+def write_chairs_tree(root: str):
+    """INPUT_SAMPLES synthetic pairs (``data.synthetic``, seed 0) at the
+    FlyingChairs size written as a FlyingChairs tree under ``root``: the
+    fixed-header ``.ppm`` images, ``.flo`` flow in (u, v) order, and a split
+    file whose last line is a validation sample. Returns the pairs as
+    written ((img1s, img2s, flows (dy, dx))) and the split file's path."""
+    h, w = chairs.SHAPE
+    img1s, img2s, flows, _ = synthetic.make_dataset(
+        np.random.RandomState(0), INPUT_SAMPLES, h, w)
+    for i, (a, b, f) in enumerate(zip(img1s, img2s, flows), 1):
+        for j, img in ((1, a), (2, b)):
+            with open(os.path.join(root, "%05d_img%d.ppm" % (i, j)),
+                      "wb") as fp:
+                fp.write(b"P6 %d %d 255\n" % (w, h) + img.tobytes())
+        codecs.flo_save(f[..., ::-1], os.path.join(root, "%05d_flow.flo" % i))
+    split = os.path.join(root, "FlyingChairs_train_val.txt")
+    with open(split, "w") as fp:
+        fp.write("1\n" * (INPUT_SAMPLES - 1) + "2\n")
+    return (img1s, img2s, flows), split
+
+
+def _int_view(x):
+    """The integers of a uint8 or f16 tensor or array (f16 as its bits)."""
+    if x.dtype in (torch.float16, np.float16):
+        return x.view(torch.int16 if torch.is_tensor(x) else np.int16)
+    return x
+
+
+def host_checksum(a) -> int:
+    """sum_k x_k * (k % 251 + 1) over the integers of ``a``, flattened."""
+    flat = _int_view(a).reshape(-1).astype(np.int64)
+    return int((flat * (np.arange(flat.size) % 251 + 1)).sum())
+
+
+def device_checksum(t, weights):
+    """:func:`host_checksum` on the device, on the current stream."""
+    flat = _int_view(t).reshape(-1).to(torch.int64)
+    return (flat * weights[:flat.numel()]).sum()
+
+
+class TaggedSource:
+    """Host batches, each a copy of one of ``bases`` whose img1 carries its
+    transfer index in its first three bytes (little-endian); keeps every
+    index's checksums (:func:`host_checksum` of each array) in ``sums``.
+    Never waits: a refresh thread replaces slots as fast as it can."""
+
+    def __init__(self, bases):
+        self.bases = bases
+        self.base_sums = [[host_checksum(x) for x in b] for b in bases]
+        self.sums: list[list[int]] = []
+
+    def __call__(self):
+        i = len(self.sums)
+        k = i % len(self.bases)
+        img1 = self.bases[k][0].copy()
+        flat = img1.reshape(-1)
+        tag = np.array([i & 255, (i >> 8) & 255, (i >> 16) & 255], np.int64)
+        delta = int(((tag - flat[:3].astype(np.int64))
+                     * (np.arange(3) + 1)).sum())
+        flat[:3] = tag
+        sums = list(self.base_sums[k])
+        sums[0] += delta
+        self.sums.append(sums)
+        return (img1, *self.bases[k][1:])
+
+
+def integrity(feed, source: TaggedSource, trainer, steps: int):
+    """Drive ``steps`` train steps from ``feed`` (a cache or prefetcher of
+    ``source``'s batches). At each serve the compute stream copies the
+    batch's tag; after the step it sleeps SLEEP_CYCLES and then takes the
+    checksum of every served tensor; the host's reference drops right
+    after. A served tensor whose memory a later copy reused before the
+    checksums read it disagrees with the host's checksums of its index.
+    Stops ``feed``; returns (the served indices, the (index, device
+    checksums) that disagree, the transfers made)."""
+    numel = max(x.size for x in source.bases[0])
+    weights = torch.arange(numel, device="cuda", dtype=torch.int64) % 251 + 1
+    rows = []
+    for _ in range(steps):
+        batch = feed.get()
+        tag = batch[0].reshape(-1)[:3].to(torch.int64)
+        trainer.train_batch_device(batch, lr=TRAIN_LR)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        rows.append(torch.cat([tag, torch.stack(
+            [device_checksum(t, weights) for t in batch])]))
+        del batch
+    feed.stop()
+    served = [(r[0] + 256 * r[1] + 65536 * r[2], r[3:])
+              for r in torch.stack(rows).cpu().tolist()]
+    bad = [(i, sums) for i, sums in served if source.sums[i] != sums]
+    return [i for i, _ in served], bad, len(source.sums)
+
+
+def check_integrity(what, feed, source, trainer, steps: int) -> int:
+    """:func:`integrity`: ``steps`` steps from ``feed`` while its slots are
+    replaced; requires every served tensor to match the host's checksums
+    of its transfer index after the step. Returns the transfers made.
+    ``tools/input_probe.py`` runs it with the guards taken out."""
+    served, bad, transfers = integrity(feed, source, trainer, steps)
+    print(f"input integrity {what}: {steps} steps served transfer indices "
+          f"{min(served)}..{max(served)} of {transfers} transfers, "
+          f"{len(bad)} with a checksum that differs from the host's",
+          flush=True)
+    require(not bad, f"{what}: served tensors changed under the step "
+            f"(index, device checksums): {bad[:3]}")
+    return transfers
+
+
+def whole_step(make_trainer, run, draws, metrics):
+    """A ``compare_on_branches`` side made of a whole train step:
+    ``run(trainer)`` (a ``train_batch_device`` or ``train_batch`` call) on
+    a fresh ``make_trainer()`` that draws ``draws``, giving what
+    ``step_grads`` gives -- the loss, each parameter's gradient (on the
+    CPU) as the step hands it to ``apply_gradients``, and the branch
+    values (``grad_parity.branches``, replaying ``replay``'s) -- and
+    appending the step's metrics to ``metrics``."""
+    def step(replay):
+        trainer = make_trainer()
+        seen, patches = grad_parity.branches(trainer.device.type, replay)
+        grads = {}
+        apply = trainer.apply_gradients
+
+        def record(lr):
+            grads.update({k: p.grad.detach().cpu()
+                          for k, p in trainer.params.items()
+                          if p.grad is not None})
+            apply(lr)
+
+        with contextlib.ExitStack() as stack:
+            for patch in patches:
+                stack.enter_context(patch)
+            stack.enter_context(mock.patch.object(trainer, "apply_gradients",
+                                                  record))
+            stack.enter_context(mock.patch.object(
+                trainer, "draw", lambda b, hw: draws))
+            out = run(trainer)
+        metrics.append({k: v.item() for k, v in out.items()})
+        return out["loss"].item(), grads, seen
+    return step
+
+
+def timed_steps(step, n: int):
+    """ms/step of ``n`` calls of ``step()`` ended by one synchronize, with
+    the launch counts and the peak memory of the run."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    launches = {k: v for k, v in launch_counts().items() if v}
+    return ms, launches, torch.cuda.max_memory_allocated() / 2**30
+
+
+def wait_until_full(loader) -> None:
+    """Wait until the loader's producers and mixer block on full queues,
+    so that no loader thread runs beside what is timed next."""
+    t0 = time.perf_counter()
+    while not (loader.batch_queue.full()
+               and all(q.full() for q in loader._queues)):
+        require(time.perf_counter() - t0 < 120, "the loader did not fill")
+        time.sleep(0.05)
+
+
+def copy_ms(batch, pinned: bool) -> float:
+    """Median of 10 host-to-device copies of the whole ``batch``, by CUDA
+    events: from pinned memory without blocking, or from the pageable
+    arrays."""
+    host = [torch.from_numpy(np.ascontiguousarray(x)) for x in batch]
+    if pinned:
+        host = [t.pin_memory() for t in host]
+    times = []
+    for _ in range(11):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dev = [t.to("cuda", non_blocking=pinned) for t in host]
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        del dev
+    return statistics.median(times[1:])
+
+
+def drive_input(smi: str):
+    """The FlyingChairs input path, from files to the augmented bf16 S step
+    through ``Trainer.train_batch_device``. Returns (launches of each
+    kernel in the run through the refreshing cache, the phase's numbers)."""
+    params = init_params(0)
+    per_step = {**S_STEP, "affine_sample": 2}
+    want = {k: v * INPUT_TIMED for k, v in per_step.items()}
+    out = {}
+
+    # a FlyingChairs tree on disk, read back
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        written, split = write_chairs_tree(root)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train, val = chairs.read_trainval(split)
+        tr = chairs.load_set(train, root)
+        va = chairs.load_set(val, root)
+        read_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(root, f))
+                   for f in os.listdir(root))
+    require((train, val) == (list(range(1, INPUT_SAMPLES)), [INPUT_SAMPLES]),
+            f"the split reads back as {train}, {val}")
+    for col, got in enumerate(zip(tr, va)):
+        for i, arr in enumerate(got[0] + got[1]):
+            require(arr.dtype == written[col][i].dtype
+                    and np.array_equal(arr, written[col][i]),
+                    f"sample {i + 1}, column {col}: read back differs")
+    print(f"input: wrote a FlyingChairs tree of {INPUT_SAMPLES} synthetic "
+          f"pairs at {chairs.SHAPE[0]}x{chairs.SHAPE[1]} ({size / 1e6:.1f} "
+          f"MB) in {write_s:.2f} s, read it back with read_trainval and "
+          f"load_set in {read_s:.2f} s: images and flow (dy, dx) bitwise "
+          f"equal", flush=True)
+
+    # the CLI's loader and device cache, the chairs presets' augmented
+    # bf16 S step
+    b = TRAIN_BATCH
+    loader = TrainLoader([Dataset(tr)] * b, b, AUG_SRC_HW, seed=0)
+    cache = DeviceBatchCache(loader.get, slots=INPUT_SLOTS,
+                             transform=with_mask)
+    settings = TrainSettings(color=presets.color_aug_config("chairs"),
+                             geo=presets.geometry_aug_config(
+                                 "chairs", TRAIN_HW, AUG_SRC_HW))
+    trainer = Trainer(settings, device="cuda", params=params)
+    with record_launches() as calls:
+        losses = [trainer.train_batch_device(cache.get(), lr=TRAIN_LR)[
+            "loss"].item() for _ in range(3)]       # warm-up
+    require_checked(calls, "input bf16 main path")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.prepare(*nchw_batch(cache.get()))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            trainer.train_batch_device(cache.get(), lr=TRAIN_LR)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "synchroniz" in str(w.message)]
+    print(f"input: cache.get() and prepare queue without a synchronisation; "
+          f"the whole train_batch_device step: {len(syncs)} "
+          f"synchronisations{': ' + syncs[0] if syncs else ''}", flush=True)
+
+    def report(name, ms, launches, peak, extra=""):
+        require(launches == want, f"{name}: {INPUT_TIMED} steps launched "
+                f"{launches}, not {INPUT_TIMED} x {per_step}")
+        out[name] = {"ms_per_step": ms, "samples_per_s": b * 1e3 / ms,
+                     "peak_gib": peak}
+        print(f"input {name}, bf16 {b}x{AUG_SRC_HW[0]}x{AUG_SRC_HW[1]} -> "
+              f"{TRAIN_HW[0]}x{TRAIN_HW[1]}: {ms:.3f} ms/step, "
+              f"{b * 1e3 / ms:.2f} samples/s, peak memory {peak:.2f} GiB"
+              f"{extra} ({smi})", flush=True)
+
+    # through the cache while it refreshes (the loader's 8 producers, its
+    # mixer and the refresh thread running beside the step)
+    cache.reset_stats()
+    metrics = []
+    ms, launches, peak = timed_steps(lambda: metrics.append(
+        trainer.train_batch_device(cache.get(), lr=TRAIN_LR)), INPUT_TIMED)
+    main_launches = launches
+    out["echo_factor"], out["transfers"] = cache.echo_factor, cache.transfers
+    report("cache refreshing", ms, launches, peak,
+           f"; echo_factor {cache.echo_factor:.3f}, {cache.transfers} "
+           f"transfers in {INPUT_TIMED} serves")
+    losses += [m["loss"].item() for m in metrics]
+
+    # the cache only serving: refresh stopped, the loader's queues full
+    cache.stop()
+    require(not cache._thread.is_alive(), "the refresh thread did not stop")
+    wait_until_full(loader)
+    cache.reset_stats()
+    ms, launches, peak = timed_steps(
+        lambda: trainer.train_batch_device(cache.get(), lr=TRAIN_LR),
+        INPUT_TIMED)
+    report("cache serving only", ms, launches, peak,
+           f"; echo_factor {cache.echo_factor:.3f}")
+
+    # train_batch on host batches: a pageable copy each step
+    batches = iter([[np.ascontiguousarray(x.transpose(0, 3, 1, 2))
+                     for x in with_mask(loader.get())]
+                    for _ in range(INPUT_TIMED)])
+    wait_until_full(loader)
+    ms, launches, peak = timed_steps(
+        lambda: trainer.train_batch(*next(batches), lr=TRAIN_LR),
+        INPUT_TIMED)
+    report("train_batch on host batches", ms, launches, peak)
+
+    # through the prefetcher
+    pre = DevicePrefetcher(loader.get, depth=2, transform=with_mask)
+    for _ in range(2):
+        trainer.train_batch_device(pre.get(), lr=TRAIN_LR)
+    ms, launches, peak = timed_steps(
+        lambda: trainer.train_batch_device(pre.get(), lr=TRAIN_LR),
+        INPUT_TIMED)
+    pre.stop()
+    report("prefetcher", ms, launches, peak)
+    require(all(map(math.isfinite, losses)), f"non-finite loss: {losses}")
+    print(f"input: loss step 1 {losses[0]:.4f}, step {len(losses)} "
+          f"{losses[-1]:.4f}", flush=True)
+
+    # slots replaced under the steps that read them
+    bases = [with_mask(loader.get()) for _ in range(2)]
+    source = TaggedSource(bases)
+    n = check_integrity("cache (2 slots)", DeviceBatchCache(
+        source, slots=2), source, trainer, INTEGRITY_STEPS)
+    out["integrity_cache_transfers"] = n
+    source = TaggedSource(bases)
+    n = check_integrity("prefetcher (depth 2)", DevicePrefetcher(
+        source, depth=2), source, trainer, INPUT_TIMED)
+    out["integrity_prefetcher_transfers"] = n
+
+    # a cached batch against the same host batch, f32, the same draws:
+    # train_batch_device against train_batch on the card (loss and epe
+    # bitwise, the gradients each step hands to apply_gradients within
+    # GRAD_RTOL), then the card's train_batch_device against the CPU's
+    # train_batch on a corner of the batch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    host = bases[0]
+    one = DeviceBatchCache(lambda it=iter([host]): next(it, None), slots=1)
+    cached = one.get()
+    require(all(np.array_equal(t.cpu().numpy(), x)
+                for t, x in zip(cached, host)), "the cached batch differs "
+            "from the host batch")
+    f32 = dataclasses.replace(settings, compute_dtype="float32",
+                              model_cfg=KERNEL_CFG)
+    card_host = [torch.from_numpy(np.ascontiguousarray(
+        x.transpose(0, 3, 1, 2))).to("cuda") for x in host]
+    draws = Trainer(f32, device="cuda", params=params,
+                    seed=5).draw(b, AUG_SRC_HW)
+    got, want = [], []
+    compare_on_branches(
+        f"input f32 train_batch_device on the cached batch vs train_batch "
+        f"on the host batch, the card, {b}x{AUG_SRC_HW[0]}x{AUG_SRC_HW[1]}",
+        whole_step(lambda: Trainer(f32, device="cuda", params=params),
+                   lambda t: t.train_batch_device(cached, lr=TRAIN_LR),
+                   draws, got),
+        whole_step(lambda: Trainer(f32, device="cuda", params=params),
+                   lambda t: t.train_batch(*card_host, lr=TRAIN_LR),
+                   draws, want))
+    print(f"input f32 train_batch_device vs train_batch, the card: loss "
+          f"{got[0]['loss']:.7f} vs {want[0]['loss']:.7f}, epe "
+          f"{got[0]['epe']:.7f} vs {want[0]['epe']:.7f}", flush=True)
+    require(got[0] == want[0], "train_batch_device and train_batch differ "
+            f"in loss or epe: {got[0]} vs {want[0]}")
+    del card_host
+    small = dataclasses.replace(f32, geo=presets.geometry_aug_config(
+        "chairs", AUG_SMALL_HW, AUG_SMALL_SRC_HW))
+    sh, sw = AUG_SMALL_SRC_HW
+    corner = tuple(t[:1, :sh, :sw] for t in cached)
+    cpu_batch = [torch.from_numpy(np.ascontiguousarray(x[:1, :sh, :sw]
+                                                       .transpose(0, 3, 1, 2)))
+                 for x in host]
+    draws = Trainer(small, device="cuda", params=params,
+                    seed=5).draw(1, AUG_SMALL_SRC_HW)
+    compare_on_branches(
+        f"input f32 train_batch_device on a cached corner, the card, vs "
+        f"train_batch on the host's, the CPU, {AUG_SMALL_SRC_HW} -> "
+        f"{AUG_SMALL_HW}",
+        whole_step(lambda: Trainer(small, device="cuda", params=params),
+                   lambda t: t.train_batch_device(corner, lr=TRAIN_LR),
+                   draws, []),
+        whole_step(lambda: Trainer(small, device="cpu", params=params),
+                   lambda t: t.train_batch(*cpu_batch, lr=TRAIN_LR),
+                   draws, []))
+    one.stop()
+    del cached, corner, one
+
+    # one batch's bytes and its copy to the card
+    nbytes = sum(x.nbytes for x in host)
+    pinned, pageable = copy_ms(host, True), copy_ms(host, False)
+    out.update(batch_bytes=nbytes, copy_pinned_ms=pinned,
+               copy_pageable_ms=pageable)
+    rates = [nbytes / ms / 1e6 for ms in (pinned, pageable)]
+    print(f"input: one batch is {nbytes} bytes ({nbytes / 1e6:.2f} MB); its "
+          f"host-to-device copy {pinned:.3f} ms pinned ({rates[0]:.2f} "
+          f"GB/s), {pageable:.3f} ms pageable ({rates[1]:.2f} GB/s) ({smi})",
+          flush=True)
+    return main_launches, out
+
+
 def print_deform_ptxas(log: str) -> None:
     """One line a deform kernel from ``nvcc -Xptxas -v``: registers, spill
     stores and loads, and the dynamic shared memory it is launched with
@@ -1680,6 +2108,9 @@ def main() -> int:
         (cascade_launches, cascade_ms_step,
          cascade_samples_s) = drive_cascade_train(gen)
 
+    with phase("input"):
+        input_launches, input_numbers = drive_input(smi)
+
     def entry(name, source, replaces, timing, err, launched, shapes,
               **extra):
         if "bound_ms" in timing:
@@ -1704,7 +2135,9 @@ def main() -> int:
             "cascade_ms_per_frame": cascade_per_frame["kernel"],
             "cascade_warpconv_ms_per_frame": cascade_per_frame["warpconv"],
             "cascade_train_ms_per_step": cascade_ms_step,
-            "cascade_train_samples_per_s": cascade_samples_s, **extra}
+            "cascade_train_samples_per_s": cascade_samples_s,
+            "input_train": input_numbers,
+            "launches_input_train": input_launches[name], **extra}
 
     def deform_timing(key):
         """The sums over the train step's four levels; the bound is the sum

@@ -1,6 +1,9 @@
 """The train/eval engine of the port: ``TrainSettings`` and ``Trainer``, the
-counterpart of ``maskflownet_tpu/training/engine.py:43-58, 104-198,
-268-392``.
+counterpart of ``maskflownet_tpu/training/engine.py:43-58, 104-208,
+259-320, 327-408``. ``Trainer.train_batch_device`` takes the batches of
+the input path (``data/loader.py``, ``data/device_cache.py``,
+``parallel/mesh.py``): NHWC uint8 images and f16 flow, already on the
+device.
 
 One step of ``Trainer.train_batch``, in the order of the JAX step
 (``engine.py:115-134``): images / 255 in f32; with ``geo``, the geometric
@@ -70,6 +73,16 @@ class TrainSettings:
     def dtype(self) -> torch.dtype:
         return (torch.bfloat16 if self.compute_dtype == "bfloat16"
                 else torch.float32)
+
+
+def nchw_batch(batch):
+    """A batch of the input path -- NHWC tensors (img1, img2, flow[, mask])
+    as ``TrainLoader``, ``DeviceBatchCache`` and ``DevicePrefetcher`` lay
+    them out -- as contiguous NCHW tensors on the same device, in the same
+    dtypes. Contiguous once here: ``.float()`` on a permuted view would
+    keep the NHWC strides, which the sampler kernel refuses and cuDNN
+    carries into its outputs."""
+    return tuple(t.permute(0, 3, 1, 2).contiguous() for t in batch)
 
 
 def _to_device(draws, dev):
@@ -202,9 +215,41 @@ class Trainer:
         metrics = {"loss": loss.detach(), "epe": epe}
         return {k: float(v) for k, v in metrics.items()} if sync else metrics
 
+    def train_batch_device(self, batch, lr: float = 1e-4):
+        """One step on a device-resident batch laid out as ``TrainLoader``,
+        ``DeviceBatchCache`` and ``DevicePrefetcher`` produce it: img1, img2
+        (B,H,W,3) uint8; flow (B,H,W,2) f16 (dy, dx) pixels; mask (B,1,1,1)
+        or (B,H,W,1) uint8, optional. Made contiguous NCHW on the device
+        (:func:`nchw_batch`), then the chain of :meth:`train_batch`, which
+        draws the augmentation afresh from the trainer's generator at
+        every call (so every echo of a cached batch gets new geometry and
+        colour). Returns ``{"loss", "epe"}`` as 0-d tensors that do not
+        wait for the device."""
+        return self.train_batch(*nchw_batch(batch), lr=lr)
+
     # ------------------------------------------------------------------
     # evaluation
     # ------------------------------------------------------------------
+
+    def predictor(self) -> Predictor:
+        """A :class:`Predictor` on the trainer's current parameters, compute
+        dtype, ``model_cfg`` and model."""
+        s = self.settings
+        return Predictor({k: v.detach() for k, v in self.params.items()},
+                         device=self.device, dtype=s.dtype(),
+                         cfg=s.model_cfg, model=s.model)
+
+    def do_batch(self, img1, img2, resize=None):
+        """:meth:`Predictor.do_batch` with the current parameters: NCHW
+        images in [0, 1] in; flow (dy, dx), occlusion and warped image 2,
+        tensors on the device, out."""
+        return self.predictor().do_batch(img1, img2, resize=resize)
+
+    def predict(self, img1s, img2s, batch_size: int = 4, resize=None):
+        """:meth:`Predictor.predict` with the current parameters: per frame
+        (flow (H,W,2) (dy, dx), occ, warped) numpy arrays for lists of
+        (H,W,3) uint8 RGB images."""
+        return self.predictor().predict(img1s, img2s, batch_size, resize)
 
     def validate(self, img1s, img2s, flows, masks=None, batch_size: int = 4,
                  resize=None, return_type: str = "epe"):
@@ -220,10 +265,7 @@ class Trainer:
         if masks is None:
             masks = [np.full(img1s[i].shape[:2] + (1,), 255, np.uint8)
                      for i in range(n)]
-        predictor = Predictor({k: v.detach() for k, v in self.params.items()},
-                              device=self.device, dtype=self.settings.dtype(),
-                              cfg=self.settings.model_cfg,
-                              model=self.settings.model)
+        predictor = self.predictor()
         per_sample: dict[str, list] = {"epe": [], "kitti": []}
         wanted = ("epe", "kitti") if return_type == "both" else (return_type,)
         for j in range(0, n, batch_size):

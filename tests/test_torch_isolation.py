@@ -45,7 +45,11 @@ def test_importing_the_port_loads_no_banned_module():
             "maskflownet_torch.tools.profile_infer, "
             "maskflownet_torch.tools.grad_parity, "
             "maskflownet_torch.tools.corr_ab, "
-            "maskflownet_torch.tools.corr_trace\n"
+            "maskflownet_torch.tools.corr_trace, "
+            "maskflownet_torch.data, maskflownet_torch.data.loader, "
+            "maskflownet_torch.data.device_cache, "
+            "maskflownet_torch.parallel, "
+            "maskflownet_torch.tools.input_probe\n"
             f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -56,7 +60,9 @@ def test_importing_the_port_loads_no_banned_module():
 
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     from maskflownet_torch import get_device
+    from maskflownet_torch.data import DeviceBatchCache
     from maskflownet_torch.inference import Predictor
+    from maskflownet_torch.parallel import DevicePrefetcher
     from maskflownet_torch.training import Trainer
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -65,4 +71,8 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
         Predictor({})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceBatchCache(lambda: None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DevicePrefetcher(lambda: None)
     assert get_device("cpu") == torch.device("cpu")
