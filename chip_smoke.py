@@ -97,7 +97,37 @@ Phases, each timed on its own line:
      an f32 step of ``train_batch_device`` on a cached batch against
      ``train_batch`` on the same host batch with the same draws (loss and
      epe bitwise), and the card's against the CPU's on a 96x128 corner;
-     a batch's bytes and its pinned and pageable copy times.
+     a batch's bytes and its pinned and pageable copy times;
+ 10. cli: the training CLI, ``maskflownet_torch.cli.main.main`` called in
+     this process at the published widths and shapes (the stock chairs
+     config: batch 8, 384x512 sources, 320x448 crops; copies of the stock
+     ``MaskFlownet_S.yaml`` and ``MaskFlownet.yaml`` with their schedules
+     cut to a few steps) on trees written in a temporary directory: the
+     chairs tree of phase 9, a Sintel tree at 436x1024 (2 training
+     sequences x 4 frames in clean and final with flow, invalid masks and
+     a split file; a test sequence of 3 frames) and KITTI 2012/2015 trees
+     at 370x1224 (3 training pairs with flow_occ, 2 testing pairs), their
+     8-bit PNGs written by a small zlib writer here (every row filter,
+     several IDAT chunks). The S stage through the device cache (20 steps,
+     ``--aug device``), the S stage through host geometry (10 steps, the
+     CLI's default ``--aug host``: the prefetcher and the numpy warp on its
+     thread), the augmented cascade stage from the first S run's
+     checkpoint with ``--clear_steps`` (10 steps: ``load_head``, the frozen
+     head, its parameters required bitwise those of the S checkpoint),
+     each validating on chairs and Sintel at steps 1 and every 10;
+     ``--valid`` with the cascade's checkpoint in f32 at 128x256 on the
+     card and on the CPU (every logged EPE and Fl-all within 1e-4
+     relative); ``--predict`` with it, its ``.flo`` files bitwise and its
+     PNG16 files equal to ``Trainer.predict`` on the same frames after
+     ``kitti_flow_encode``. Each run: exit code 0, finite loss and epe at
+     every logged step, its checkpoint read back through ``interop``, the
+     exact launch count of every kernel (the steps' and each validation
+     forward's), and no thread ``main`` started still alive when it
+     returns; then every launch shape the runs recorded that no earlier
+     check covered is held against the plain versions. It prints each
+     stage's ms/step and samples/s from the log's moving averages
+     (``total_time``, ``loading_time``), the cache's ``echo_factor`` and
+     the validation sweeps' ms/frame.
 The card-vs-CPU comparisons run the deform kernels' form on both sides
 (``deform="kernel"``: its plain pair on the CPU), so that both take the
 same sample coordinates.
@@ -111,7 +141,8 @@ to the tolerance, with one only the second.
 The warm-up of every bf16 main path records each correlation and deform
 launch by kernel, shape, dtype (and the gradients a deform backward asks
 for) and requires each to be one that phase 3 or 4 held against the plain
-version. Then one JSON line describing the kernels, and as the last line
+version (phase 10 holds the shapes its runs launched after them). Then
+one JSON line describing the kernels, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line; so does a machine without CUDA.
 """
@@ -127,23 +158,29 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
+import zlib
 from unittest import mock
 
 import numpy as np
 import torch
 
+import maskflownet_torch.cli.main as cli_module
 import maskflownet_torch.models.maskflownet as model_module
 import maskflownet_torch.ops.correlation as corr_module
 import maskflownet_torch.ops.deform as deform_module
 from maskflownet_torch.augment import draw_geometry
 from maskflownet_torch.augment.geometry import sample_grids
-from maskflownet_torch.config import presets
+from maskflownet_torch import interop
+from maskflownet_torch.config import CONFIG_DIR, load_config, presets
 from maskflownet_torch.data import (Dataset, DeviceBatchCache, TrainLoader,
-                                    chairs, codecs, synthetic, with_mask)
+                                    chairs, codecs, kitti, sintel, synthetic,
+                                    with_mask)
 from maskflownet_torch.inference import Predictor
-from maskflownet_torch.models import HEAD_SCOPE, ModelConfig, init_params
+from maskflownet_torch.models import (HEAD_SCOPE, ModelConfig, init_params,
+                                      param_shapes)
 from maskflownet_torch.ops import _build
 from maskflownet_torch.ops.affine import affine_sample, affine_sample_plain
 from maskflownet_torch.ops.correlation import (corr_bwd_f1, corr_bwd_f2,
@@ -157,7 +194,8 @@ from maskflownet_torch.ops.deform import (_warpconv, deform_bwd,
 from maskflownet_torch.ops.warp import base_grid, normalized_to_pixels
 from maskflownet_torch.parallel import DevicePrefetcher
 from maskflownet_torch.tools import grad_parity
-from maskflownet_torch.training import TrainSettings, Trainer, nchw_batch
+from maskflownet_torch.training import (TrainSettings, Trainer,
+                                        find_checkpoints, nchw_batch)
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.float32: 67e12,       # f32 outside the tensor cores
@@ -286,6 +324,21 @@ BRANCHES = ("coords", "leaky", "corr")
 # that a slot whose memory a later copy took would be read after that copy
 INPUT_SAMPLES, INPUT_SLOTS, INPUT_TIMED = 16, 8, 20
 INTEGRITY_STEPS, SLEEP_CYCLES = 30, 20_000_000
+# the cli phase: the S stage through the device cache (CLI_S_STEPS steps),
+# through host geometry (CLI_HOST_STEPS), the cascade from the first
+# (CLI_CASCADE_STEPS), validating at steps 1 and every CLI_VAL_STEPS; a
+# Sintel tree of 2 training sequences of CLI_SINTEL_FRAMES frames (the
+# first in the split's training1, the second in training2) and a test
+# sequence of CLI_SINTEL_TEST frames, KITTI trees of CLI_KITTI_TRAIN
+# training and CLI_KITTI_TEST testing pairs an edition, at the datasets'
+# native sizes; --valid on the card and on the CPU at CLI_RESIZE, their
+# metrics within CLI_VALID_RTOL of each other (f32, the same forms: only
+# summation orders differ)
+CLI_S_STEPS, CLI_HOST_STEPS, CLI_CASCADE_STEPS, CLI_VAL_STEPS = 20, 10, 10, 10
+CLI_SLOTS = 8
+CLI_SINTEL_FRAMES, CLI_SINTEL_TEST = 4, 3
+CLI_KITTI_TRAIN, CLI_KITTI_TEST, CLI_KITTI_HW = 3, 2, (370, 1224)
+CLI_RESIZE, CLI_VALID_RTOL = "128,256", 1e-4
 # every (kernel, shape, md or Cout, dtype[, needs]) that a check held
 # against its plain version (keys as ``launch_key`` makes them); each main
 # path's launches must lie in it
@@ -384,6 +437,33 @@ def plan_note(shape, md: int, kernel: str) -> str:
             f"{', at its floor' if floor else ''})")
 
 
+def check_corr_fwd_case(md, shape, gen) -> dict:
+    """corr_fwd vs the plain version at one (md, shape), f32 and bf16 (and
+    f16 at CORR_F16_CASES), LeakyReLU on and off; records each dtype in
+    CHECKED; returns the largest error of each dtype."""
+    worst = {}
+    base1 = torch.randn(shape, generator=gen, device="cuda")
+    base2 = torch.randn(shape, generator=gen, device="cuda")
+    dtypes = (torch.float32, torch.bfloat16) + (
+        (torch.float16,) if (md, shape) in CORR_F16_CASES else ())
+    for dtype in dtypes:
+        f1, f2 = base1.to(dtype), base2.to(dtype)
+        for leaky in (None, 0.1):
+            got = corr_fwd(f1, f2, md, leaky)
+            torch.cuda.synchronize()
+            want = correlation_plain(f1.float(), f2.float(), md, leaky)
+            require(got.dtype == dtype and got.shape == want.shape,
+                    f"corr_fwd output {got.dtype} {tuple(got.shape)}")
+            torch.testing.assert_close(got.float(), want, **TOL[dtype])
+            err = (got.float() - want).abs().max().item()
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+        CHECKED.add(("corr_fwd", tuple(shape), md, dtype))
+    print(f"corr_fwd check md={md} {shape} "
+          f"{'/'.join(str(d).split('.')[1] for d in dtypes)}: ok; "
+          f"{plan_note(shape, md, 'corr_fwd')}", flush=True)
+    return worst
+
+
 def check_kernel(gen):
     """corr_fwd vs the plain version on every case: md=4 at the level
     shapes of every main path, md=2 at the cascade's, the extra cases and
@@ -394,25 +474,8 @@ def check_kernel(gen):
              + [(2, s) for _, s in LEVELS + CASCADE_TRAIN_LEVELS]
              + EXTRA_CASES + CORR_EDGES)
     for md, shape in cases:
-        base1 = torch.randn(shape, generator=gen, device="cuda")
-        base2 = torch.randn(shape, generator=gen, device="cuda")
-        dtypes = (torch.float32, torch.bfloat16) + (
-            (torch.float16,) if (md, shape) in CORR_F16_CASES else ())
-        for dtype in dtypes:
-            f1, f2 = base1.to(dtype), base2.to(dtype)
-            for leaky in (None, 0.1):
-                got = corr_fwd(f1, f2, md, leaky)
-                torch.cuda.synchronize()
-                want = correlation_plain(f1.float(), f2.float(), md, leaky)
-                require(got.dtype == dtype and got.shape == want.shape,
-                        f"corr_fwd output {got.dtype} {tuple(got.shape)}")
-                torch.testing.assert_close(got.float(), want, **TOL[dtype])
-                err = (got.float() - want).abs().max().item()
-                worst[dtype] = max(worst[dtype], err)
-            CHECKED.add(("corr_fwd", tuple(shape), md, dtype))
-        print(f"corr_fwd check md={md} {shape} "
-              f"{'/'.join(str(d).split('.')[1] for d in dtypes)}: ok; "
-              f"{plan_note(shape, md, 'corr_fwd')}", flush=True)
+        for dtype, err in check_corr_fwd_case(md, shape, gen).items():
+            worst[dtype] = max(worst[dtype], err)
     print("corr_fwd max |err|: " + ", ".join(
         f"{str(dt).split('.')[1]} {worst[dt]:.3e} (tol {TOL[dt]})"
         for dt in TOL), flush=True)
@@ -440,51 +503,62 @@ def channel_slice(g):
     return big[:, 3:3 + dd]
 
 
+def check_corr_bwd_case(md, shape, gen) -> dict:
+    """corr_bwd_f1/f2 vs their plain versions at one (md, shape), f32 and
+    bf16 (and f16 at CORR_F16_CASES), LeakyReLU on and off, each also on
+    the cotangent as a channel slice of a larger tensor, required bitwise
+    equal to the result on a contiguous copy; records each in CHECKED;
+    returns the largest error of each (kernel, dtype)."""
+    worst = {}
+    f16 = (md, shape) in CORR_F16_CASES
+    for dtype in (torch.float32, torch.bfloat16) + (
+            (torch.float16,) if f16 else ()):
+        for leaky in (None, 0.1):
+            feats, g, out = _bwd_inputs(shape, md, dtype, leaky, gen)
+            if leaky is not None:
+                require(bool((out < 0).any() and (out > 0).any()),
+                        "the saved output holds both signs")
+            gs = channel_slice(g)
+            require(corr_module.dense_per_image(gs) and (
+                shape[0] == 1 or not gs.is_contiguous()),
+                "the channel slice is dense per image, not contiguous")
+            for name, kernel, plain, which in BWD:
+                got = kernel(g, feats[which], out, md, leaky)
+                got_s = kernel(gs, feats[which], out, md, leaky)
+                torch.cuda.synchronize()
+                want = plain(g.float(), feats[which].float(),
+                             None if out is None else out.float(), md,
+                             leaky)
+                require(got.dtype == dtype and got.shape == want.shape,
+                        f"{name} output {got.dtype} {tuple(got.shape)}")
+                torch.testing.assert_close(got.float(), want,
+                                           **TOL[dtype])
+                require(torch.equal(got_s, got), f"{name} on a channel "
+                        "slice of the cotangent differs from the "
+                        "contiguous result")
+                err = (got.float() - want).abs().max().item()
+                worst[(name, dtype)] = max(worst.get((name, dtype), 0.0),
+                                           err)
+                CHECKED.add((name, tuple(shape), md, dtype))
+    print(f"corr_bwd_f1/f2 check md={md} {shape}{' (+f16)' if f16 else ''}"
+          f" (cotangent contiguous and a channel slice): ok; corr_bwd_f1 "
+          f"{plan_note(shape, md, 'corr_bwd_f1')}; corr_bwd_f2 "
+          f"{plan_note(shape, md, 'corr_bwd_f2')}", flush=True)
+    return worst
+
+
 def check_bwd_kernels(gen):
-    """corr_bwd_f1/f2 vs their plain versions at the S train step's level
-    shapes (md=4), the cascade step's (md=2), the extra cases, the tiling's
-    edges and BIG_BATCH, f32 and bf16 (both also f16 at CORR_F16_CASES);
-    each also on the cotangent as a channel slice of a larger tensor,
-    required bitwise equal to the result on a contiguous copy. Returns the
-    largest f32 error of each."""
+    """corr_bwd_f1/f2 vs their plain versions (``check_corr_bwd_case``) at
+    the S train step's level shapes (md=4), the cascade step's (md=2), the
+    extra cases, the tiling's edges and BIG_BATCH. Returns the largest f32
+    error of each."""
     worst = {(name, dt): 0.0 for name, *_ in BWD for dt in TOL}
     cases = ([(4, s) for _, s in TRAIN_LEVELS]
              + [(2, s) for _, s in CASCADE_TRAIN_LEVELS] + TRAIN_EXTRA
              + CORR_EDGES + [BIG_BATCH])
     for md, shape in cases:
-        f16 = (md, shape) in CORR_F16_CASES
-        for dtype in (torch.float32, torch.bfloat16) + (
-                (torch.float16,) if f16 else ()):
-            for leaky in (None, 0.1):
-                feats, g, out = _bwd_inputs(shape, md, dtype, leaky, gen)
-                if leaky is not None:
-                    require(bool((out < 0).any() and (out > 0).any()),
-                            "the saved output holds both signs")
-                gs = channel_slice(g)
-                require(corr_module.dense_per_image(gs) and (
-                    shape[0] == 1 or not gs.is_contiguous()),
-                    "the channel slice is dense per image, not contiguous")
-                for name, kernel, plain, which in BWD:
-                    got = kernel(g, feats[which], out, md, leaky)
-                    got_s = kernel(gs, feats[which], out, md, leaky)
-                    torch.cuda.synchronize()
-                    want = plain(g.float(), feats[which].float(),
-                                 None if out is None else out.float(), md,
-                                 leaky)
-                    require(got.dtype == dtype and got.shape == want.shape,
-                            f"{name} output {got.dtype} {tuple(got.shape)}")
-                    torch.testing.assert_close(got.float(), want,
-                                               **TOL[dtype])
-                    require(torch.equal(got_s, got), f"{name} on a channel "
-                            "slice of the cotangent differs from the "
-                            "contiguous result")
-                    err = (got.float() - want).abs().max().item()
-                    worst[(name, dtype)] = max(worst[(name, dtype)], err)
-                    CHECKED.add((name, tuple(shape), md, dtype))
-        print(f"corr_bwd_f1/f2 check md={md} {shape}{' (+f16)' if f16 else ''}"
-              f" (cotangent contiguous and a channel slice): ok; corr_bwd_f1 "
-              f"{plan_note(shape, md, 'corr_bwd_f1')}; corr_bwd_f2 "
-              f"{plan_note(shape, md, 'corr_bwd_f2')}", flush=True)
+        for key, err in check_corr_bwd_case(md, shape, gen).items():
+            worst[key] = max(worst[key], err)
     for name, *_ in BWD:
         print(f"{name} max |err|: " + ", ".join(
             f"{str(dt).split('.')[1]} {worst[(name, dt)]:.3e}" for dt in TOL),
@@ -660,60 +734,74 @@ def deform_cases(gen):
     return cases
 
 
+def check_deform_case(gen, name, shape, cout, flow, padded, dtype,
+                      needs_list=DEFORM_NEEDS) -> dict:
+    """deform_fwd and deform_bwd (each gradient subset of ``needs_list``)
+    against the plain pair at one case and dtype; records each in CHECKED;
+    returns, for each kernel, (largest error relative to max |plain|,
+    largest absolute error)."""
+    worst = {}
+
+    def note(kernel, got, want):
+        rel, ab = worst.get(kernel, (0.0, 0.0))
+        worst[kernel] = (max(rel, rel_err(got, want)),
+                         max(ab, abs_err(got, want)))
+
+    x, _, _, sy, sx, w9, g = deform_inputs(gen, shape, cout, dtype, flow)
+    if not padded:
+        w9 = w9.contiguous()
+        require(deform_module.w9_pitch(w9) is None,
+                "a compact w9 at Cout 7 is not in the kernels' pitch")
+    got = deform_fwd(x, sy, sx, w9)
+    torch.cuda.synchronize()
+    want = deform_fwd_plain(x, sy, sx, w9)
+    require(got.dtype == dtype and got.shape == want.shape,
+            f"deform_fwd output {got.dtype} {tuple(got.shape)}")
+    err = rel_err(got, want)
+    require(err <= DEFORM_TOL[dtype], f"deform_fwd {name} {dtype}: "
+            f"relative error {err:.3e}")
+    note("deform_fwd", got, want)
+    CHECKED.add(("deform_fwd", tuple(shape), cout, dtype))
+    if name.startswith("odd flow"):
+        require(want.abs().max().item() == 0 and
+                got.abs().max().item() == 0,
+                "windows wholly outside the image give zero")
+    for needs in needs_list:
+        got = deform_bwd(x, sy, sx, w9, g, needs)
+        torch.cuda.synchronize()
+        want = deform_bwd_plain(x, sy, sx, w9, g, needs)
+        asked = (needs[0], needs[1], needs[1], needs[2])
+        for what, a, b, on in zip(("dx", "dsy", "dsx", "dw"), got,
+                                  want, asked):
+            require((a is not None) == on and (b is not None) == on,
+                    f"deform_bwd {needs}: {what} returned "
+                    f"{a is not None}, asked {on}")
+            if not on:
+                continue
+            require(a.dtype == torch.float32 and a.shape == b.shape,
+                    f"deform_bwd {what} {a.dtype} {tuple(a.shape)}")
+            err = rel_err(a, b)
+            require(err <= DEFORM_TOL[torch.float32],
+                    f"deform_bwd {name} {dtype} {needs} {what}: "
+                    f"relative error {err:.3e}")
+            note("deform_bwd", a, b)
+        CHECKED.add(("deform_bwd", tuple(shape), cout, dtype, needs))
+    return worst
+
+
 def check_deform(gen):
     """deform_fwd and deform_bwd (each gradient subset) against the plain
-    pair on every case, f32 and bf16; returns, for each, the largest f32
-    error as (absolute, relative to max |plain|)."""
+    pair on every case, f32 and bf16 (``check_deform_case``); returns, for
+    each, the largest f32 error as (absolute, relative to max |plain|)."""
     worst = {(k, dt): 0.0 for k in ("deform_fwd", "deform_bwd") for dt in TOL}
     worst_abs = dict(worst)
     for name, shape, cout, flow, padded in deform_cases(gen):
         for dtype in (torch.float32, torch.bfloat16):
-            x, _, _, sy, sx, w9, g = deform_inputs(gen, shape, cout, dtype,
-                                                   flow)
-            if not padded:
-                w9 = w9.contiguous()
-                require(deform_module.w9_pitch(w9) is None,
-                        "a compact w9 at Cout 7 is not in the kernels' pitch")
-            got = deform_fwd(x, sy, sx, w9)
-            torch.cuda.synchronize()
-            want = deform_fwd_plain(x, sy, sx, w9)
-            require(got.dtype == dtype and got.shape == want.shape,
-                    f"deform_fwd output {got.dtype} {tuple(got.shape)}")
-            err = rel_err(got, want)
-            require(err <= DEFORM_TOL[dtype], f"deform_fwd {name} {dtype}: "
-                    f"relative error {err:.3e}")
-            worst[("deform_fwd", dtype)] = max(worst[("deform_fwd", dtype)],
-                                               err)
-            worst_abs[("deform_fwd", dtype)] = max(
-                worst_abs[("deform_fwd", dtype)], abs_err(got, want))
-            CHECKED.add(("deform_fwd", tuple(shape), cout, dtype))
-            if name.startswith("odd flow"):
-                require(want.abs().max().item() == 0 and
-                        got.abs().max().item() == 0,
-                        "windows wholly outside the image give zero")
-            for needs in DEFORM_NEEDS:
-                got = deform_bwd(x, sy, sx, w9, g, needs)
-                torch.cuda.synchronize()
-                want = deform_bwd_plain(x, sy, sx, w9, g, needs)
-                asked = (needs[0], needs[1], needs[1], needs[2])
-                for what, a, b, on in zip(("dx", "dsy", "dsx", "dw"), got,
-                                          want, asked):
-                    require((a is not None) == on and (b is not None) == on,
-                            f"deform_bwd {needs}: {what} returned "
-                            f"{a is not None}, asked {on}")
-                    if not on:
-                        continue
-                    require(a.dtype == torch.float32 and a.shape == b.shape,
-                            f"deform_bwd {what} {a.dtype} {tuple(a.shape)}")
-                    err = rel_err(a, b)
-                    require(err <= DEFORM_TOL[torch.float32],
-                            f"deform_bwd {name} {dtype} {needs} {what}: "
-                            f"relative error {err:.3e}")
-                    worst[("deform_bwd", dtype)] = max(
-                        worst[("deform_bwd", dtype)], err)
-                    worst_abs[("deform_bwd", dtype)] = max(
-                        worst_abs[("deform_bwd", dtype)], abs_err(a, b))
-                CHECKED.add(("deform_bwd", tuple(shape), cout, dtype, needs))
+            errs = check_deform_case(gen, name, shape, cout, flow, padded,
+                                     dtype)
+            for k, (rel, ab) in errs.items():
+                worst[(k, dtype)] = max(worst[(k, dtype)], rel)
+                worst_abs[(k, dtype)] = max(worst_abs[(k, dtype)], ab)
         print(f"deform check {name} {shape} -> {cout}: ok", flush=True)
     for k in ("deform_fwd", "deform_bwd"):
         print(f"{k} max |err|/max|plain|: f32 "
@@ -2012,6 +2100,463 @@ def drive_input(smi: str):
     return main_launches, out
 
 
+def png8_save(path: str, arr) -> None:
+    """An 8-bit PNG of (H, W) gray or (H, W, 3) RGB uint8, written with zlib
+    (the card's machine has no image library): its rows filtered None,
+    Sub, Up, Average and Paeth in turn, its data in IDAT chunks of 64 KiB,
+    so that ``codecs.image_load`` decodes every filter and several
+    chunks."""
+    h, w = arr.shape[:2]
+    bpp = 1 if arr.ndim == 2 else arr.shape[2]
+    raw = arr.reshape(h, w * bpp).astype(np.int16)
+    up = np.concatenate([np.zeros_like(raw[:1]), raw[:-1]])
+    rows = np.empty((h, w * bpp + 1), np.uint8)
+    for ft in range(5):                     # the rows of each filter
+        r, b = raw[ft::5], up[ft::5]
+        a = np.pad(r, ((0, 0), (bpp, 0)))[:, :-bpp]         # left
+        c = np.pad(b, ((0, 0), (bpp, 0)))[:, :-bpp]         # up-left
+        if ft == 4:
+            pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+            pred = np.where((pa <= pb) & (pa <= pc), a,
+                            np.where(pb <= pc, b, c))
+        else:
+            pred = (0, a, b, (a + b) >> 1)[ft]
+        rows[ft::5, 0] = ft
+        rows[ft::5, 1:] = (r - pred) % 256
+    data = zlib.compress(rows.tobytes(), 1)
+
+    def chunk(typ: bytes, payload: bytes) -> bytes:
+        return (len(payload).to_bytes(4, "big") + typ + payload
+                + (zlib.crc32(typ + payload) & 0xFFFFFFFF).to_bytes(4, "big"))
+
+    with open(path, "wb") as fp:
+        fp.write(b"\x89PNG\r\n\x1a\n")
+        fp.write(chunk(b"IHDR", w.to_bytes(4, "big") + h.to_bytes(4, "big")
+                       + bytes([8, 0 if bpp == 1 else 2, 0, 0, 0])))
+        for i in range(0, len(data), 1 << 16):
+            fp.write(chunk(b"IDAT", data[i:i + (1 << 16)]))
+        fp.write(chunk(b"IEND", b""))
+
+
+def write_sintel_tree(root: str, rng) -> dict:
+    """A Sintel tree at its native 436x1024 under ``root``: training
+    sequences alley_1 and ambush_2 of CLI_SINTEL_FRAMES frames in clean and
+    final, their flow (u, v) and invalid masks, a split file giving
+    alley_1 to training1 and ambush_2 to training2, and a test sequence of
+    CLI_SINTEL_TEST frames in final. Returns the readers' environment."""
+    h, w = sintel.SHAPE
+    seqs = ("alley_1", "ambush_2")
+    for seq in seqs:
+        for part in ("clean", "final", "flow", "invalid"):
+            os.makedirs(os.path.join(root, "training", part, seq))
+        for i in range(1, CLI_SINTEL_FRAMES + 1):
+            for part in ("clean", "final"):
+                png8_save(os.path.join(root, "training", part, seq,
+                                       f"frame_{i:04d}.png"),
+                          rng.randint(0, 256, (h, w, 3), dtype=np.uint8))
+            if i < CLI_SINTEL_FRAMES:
+                codecs.flo_save(
+                    (rng.randn(h, w, 2) * 4).astype(np.float32),
+                    os.path.join(root, "training", "flow", seq,
+                                 f"frame_{i:04d}.flo"))
+                png8_save(os.path.join(root, "training", "invalid", seq,
+                                       f"frame_{i:04d}.png"),
+                          (rng.rand(h, w) < 0.1).astype(np.uint8) * 255)
+    test = os.path.join(root, "test", "final", "market_1")
+    os.makedirs(test)
+    for i in range(1, CLI_SINTEL_TEST + 1):
+        png8_save(os.path.join(test, f"frame_{i:04d}.png"),
+                  rng.randint(0, 256, (h, w, 3), dtype=np.uint8))
+    split = os.path.join(root, "Sintel_train_val_maskflownet.txt")
+    with open(split, "w") as fp:
+        fp.write("1\n" * (CLI_SINTEL_FRAMES - 1)
+                 + "2\n" * (CLI_SINTEL_FRAMES - 1))
+    return {"MFN_SINTEL_ROOT": root, "MFN_SINTEL_SPLIT": split}
+
+
+def write_kitti_tree(root: str, rng) -> dict:
+    """KITTI 2012 and 2015 trees at 370x1224 under ``root``:
+    CLI_KITTI_TRAIN training pairs with a flow_occ PNG16 each (70% of the
+    pixels valid), CLI_KITTI_TEST testing pairs. Returns the readers'
+    environment."""
+    path = kitti.default_paths(root)
+    for d in path.values():
+        os.makedirs(d)
+    h, w = CLI_KITTI_HW
+    for ed in ("2012", "2015"):
+        for n, key in ((CLI_KITTI_TRAIN, "image"), (CLI_KITTI_TEST,
+                                                    "testing")):
+            for k in range(n):
+                for s in (10, 11):
+                    png8_save(os.path.join(path[ed + key],
+                                           f"{k:06d}_{s}.png"),
+                              rng.randint(0, 256, (h, w, 3), dtype=np.uint8))
+        for k in range(CLI_KITTI_TRAIN):
+            enc = codecs.kitti_flow_encode(
+                (rng.randn(h, w, 2) * 6).astype(np.float32))
+            enc[..., 2] = rng.rand(h, w) < 0.7
+            codecs.png16_save(enc, os.path.join(path[ed + "flow_occ"],
+                                                f"{k:06d}_10.png"))
+    return {"MFN_KITTI_ROOT": root}
+
+
+def cut_yaml(name: str, path: str, steps: int | None = None,
+             **settings) -> str:
+    """A copy of the stock config ``name`` at ``path``: its learning-rate
+    schedule cut to its first rate for ``steps`` steps, or the top-level
+    ``settings`` replaced. Returns ``path``."""
+    with open(os.path.join(CONFIG_DIR, name)) as fp:
+        lines = fp.read().splitlines()
+    if steps is not None:
+        first = load_config(name).optimizer.learning_rate.value[0][1]
+        cut = lines.index("  learning_rate:") + 1
+        lines = lines[:cut] + [f"    - [{steps}, {first!r}]"]
+    for key, value in settings.items():
+        lines = [f"{key}: {value}" if ln.startswith(key + ":") else ln
+                 for ln in lines]
+    with open(path, "w") as fp:
+        fp.write("\n".join(lines) + "\n")
+    return path
+
+
+def cli_want(steps: int, per_step: dict, forwards: int,
+             per_forward: dict) -> dict:
+    """Launch counts of ``steps`` train steps and ``forwards`` inference
+    forwards."""
+    want = {k: v * steps for k, v in per_step.items()}
+    for k, v in per_forward.items():
+        want[k] = want.get(k, 0) + v * forwards
+    return {k: v for k, v in want.items() if v}
+
+
+def run_cli(argv, what: str, want: dict | None):
+    """``cli.main(argv)`` in this process, its launch counts zeroed just
+    before and read just after, every correlation and deform launch
+    recorded; requires exit code 0, ``want``'s launch counts (unless
+    None) and no thread that ``main`` started still alive. Returns (the
+    counts, the recorded launches, the DeviceBatchCache it made or None,
+    the validation sweeps' (seconds, frames), seconds)."""
+    caches, sweeps = [], []
+
+    class RecordedCache(DeviceBatchCache):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            caches.append(self)
+
+    real_validation = cli_module.run_validation
+
+    def timed_validation(trainer, validation, batch_size, resize):
+        t0 = time.perf_counter()
+        out = real_validation(trainer, validation, batch_size, resize)
+        sweeps.append((time.perf_counter() - t0,
+                       sum(len(v[0]) for v in validation.values())))
+        return out
+
+    before = set(threading.enumerate())
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(cli_module, "DeviceBatchCache",
+                                              RecordedCache))
+        stack.enter_context(mock.patch.object(cli_module, "run_validation",
+                                              timed_validation))
+        calls = stack.enter_context(record_launches())
+        rc = cli_module.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    alive = [t.name for t in threading.enumerate()
+             if t not in before and t.is_alive()]
+    require(rc == 0, f"cli {what}: main returned {rc}")
+    require(not alive, f"cli {what}: threads still alive after main "
+            f"returned: {alive}")
+    if want is not None:
+        require(launches == want, f"cli {what}: launched {launches}, "
+                f"not {want}")
+    print(f"cli {what}: main returned 0 in {seconds:.3f} s, no thread it "
+          f"started alive; launches {launches}", flush=True)
+    return launches, calls, (caches[0] if caches else None), sweeps, seconds
+
+
+def train_log(root: str, run_id: str, steps: int, what: str) -> list[dict]:
+    """The log's step lines, required finite in loss and epe at every step
+    1..``steps``."""
+    rows = []
+    with open(os.path.join(root, "logs", run_id + ".log")) as fp:
+        for line in fp:
+            body = line.split("] ", 1)[1].strip()
+            if ", loss=" in body:
+                rows.append({k: float(v) for k, v in (
+                    kv.split("=", 1) for kv in body.split(", "))})
+    require([int(r["steps"]) for r in rows] == list(range(1, steps + 1)),
+            f"cli {what}: logged steps {[r['steps'] for r in rows]}")
+    require(all(math.isfinite(r["loss"]) and math.isfinite(r["epe"])
+                for r in rows), f"cli {what}: non-finite loss or epe")
+    return rows
+
+
+def checkpoint_of(root: str, run_id: str, steps: int, model: str) -> str:
+    """The run's checkpoint at ``steps``, required to read back through
+    ``interop`` with ``model``'s parameter names and shapes."""
+    cks = dict((s, p) for p, s in find_checkpoints(root, run_id))
+    require(steps in cks, f"cli: no checkpoint of {run_id} at {steps}: "
+            f"{cks}")
+    state = interop.read_npz(cks[steps], param_shapes(model=model))
+    require(state["step"] == steps and all(
+        bool(torch.isfinite(v).all()) for v in state["params"].values()),
+        f"cli: checkpoint {cks[steps]} reads back wrong")
+    return cks[steps]
+
+
+def check_uncovered(calls, gen, what: str) -> None:
+    """Hold every correlation and deform launch shape in ``calls`` that no
+    check has covered yet against the plain versions (the case checks of
+    phases 3 and 4), then require them all covered."""
+    for key in sorted(set(calls), key=str):
+        if key in CHECKED:
+            continue
+        name, shape, arg, dtype = key[:4]
+        if name == "corr_fwd":
+            check_corr_fwd_case(arg, shape, gen)
+        elif name.startswith("corr_bwd"):
+            check_corr_bwd_case(arg, shape, gen)
+        else:
+            needs = list(DEFORM_NEEDS) + [
+                k[4] for k in calls if k[:4] == ("deform_bwd",) + key[1:4]
+                and k[4] not in DEFORM_NEEDS]
+            check_deform_case(gen, what, shape, arg, None, True, dtype,
+                              needs)
+            print(f"deform check {what} {shape} -> {arg} {dtype}: ok",
+                  flush=True)
+    require_checked(calls, what)
+
+
+def drive_cli(smi: str, gen):
+    """The training CLI (``python -m maskflownet_torch.cli.main``) in this
+    process on FlyingChairs, Sintel and KITTI trees: the S stage through
+    the device cache and through host geometry, the augmented cascade from
+    the first S run with its head frozen, ``--valid`` on the card and the
+    CPU, ``--predict`` against ``Trainer.predict``. Returns (the launches of
+    each stage, the phase's numbers)."""
+    b = presets.BATCH_SIZE["chairs"]
+    out, launches, all_calls = {}, {}, []
+    per_cached = {**S_STEP, "affine_sample": 2}
+    per_cascade = {**CASCADE_STEP, "affine_sample": 2}
+    # a validation's forwards: chairs' one sample, Sintel training2's
+    # clean and final (CLI_SINTEL_FRAMES - 1 pairs each), one batch each
+    val_forwards = 1 + 2 * math.ceil((CLI_SINTEL_FRAMES - 1) / b)
+
+    def validations(steps):
+        return 1 + steps // CLI_VAL_STEPS
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rng = np.random.RandomState(7)
+        chairs_dir = os.path.join(tmp, "chairs")
+        os.makedirs(chairs_dir)
+        _, chairs_split = write_chairs_tree(chairs_dir)
+        env = {"MFN_CHAIRS_DIR": chairs_dir, "MFN_CHAIRS_SPLIT": chairs_split,
+               **write_sintel_tree(os.path.join(tmp, "sintel"), rng),
+               **write_kitti_tree(os.path.join(tmp, "kitti"), rng)}
+        s20 = cut_yaml("MaskFlownet_S.yaml", os.path.join(tmp, "s.yaml"),
+                       CLI_S_STEPS)
+        s10 = cut_yaml("MaskFlownet_S.yaml", os.path.join(tmp, "s_host.yaml"),
+                       CLI_HOST_STEPS)
+        c10 = cut_yaml("MaskFlownet.yaml", os.path.join(tmp, "cascade.yaml"),
+                       CLI_CASCADE_STEPS)
+        ds_s = cut_yaml("chairs.yaml", os.path.join(tmp, "chairs_s.yaml"),
+                        validation_steps=CLI_VAL_STEPS,
+                        checkpoint_steps=CLI_S_STEPS)
+        ds_10 = cut_yaml("chairs.yaml", os.path.join(tmp, "chairs_10.yaml"),
+                         validation_steps=CLI_VAL_STEPS,
+                         checkpoint_steps=CLI_VAL_STEPS)
+        print(f"cli: chairs ({INPUT_SAMPLES} pairs), Sintel (2 x "
+              f"{CLI_SINTEL_FRAMES} frames x clean/final, {CLI_SINTEL_TEST} "
+              f"test) and KITTI ({CLI_KITTI_TRAIN} + {CLI_KITTI_TEST} pairs "
+              f"an edition) trees written in {time.perf_counter() - t0:.3f} "
+              f"s", flush=True)
+        root, root_host = os.path.join(tmp, "exp"), os.path.join(tmp, "host")
+        with mock.patch.dict(os.environ, env):
+            # 1. the S stage through the device cache (--aug device)
+            launches["s"], calls, cache, sweeps, _ = run_cli(
+                [s20, "--dataset_cfg", ds_s, "--root", root,
+                 "--device_cache", str(CLI_SLOTS)], "S stage, device cache",
+                cli_want(CLI_S_STEPS, per_cached,
+                         validations(CLI_S_STEPS) * val_forwards, S_FWD))
+            all_calls += calls
+            (s_run,) = [f[:-4] for f in os.listdir(os.path.join(root, "logs"))
+                        if f.endswith(".log")]
+            rows = train_log(root, s_run, CLI_S_STEPS, "S stage")
+            s_ck = checkpoint_of(root, s_run, CLI_S_STEPS, "MaskFlownet_S")
+            out["s"] = {"echo_factor": cache.echo_factor,
+                        "transfers": cache.transfers}
+            stages = [("s", "S stage, device cache", rows, sweeps)]
+
+            # 2. the S stage through host geometry (--aug host, the
+            # prefetcher), in a root of its own
+            launches["s_host"], calls, _, sweeps, _ = run_cli(
+                [s10, "--dataset_cfg", ds_10, "--root", root_host],
+                "S stage, host geometry",
+                cli_want(CLI_HOST_STEPS, S_STEP,
+                         validations(CLI_HOST_STEPS) * val_forwards, S_FWD))
+            all_calls += calls
+            (h_run,) = [f[:-4] for f in os.listdir(
+                os.path.join(root_host, "logs")) if f.endswith(".log")]
+            rows = train_log(root_host, h_run, CLI_HOST_STEPS, "host stage")
+            checkpoint_of(root_host, h_run, CLI_HOST_STEPS, "MaskFlownet_S")
+            out["s_host"] = {}
+            stages.append(("s_host", "S stage, host geometry", rows, sweeps))
+
+            # 3. the cascade from the S run: load_head, the frozen head,
+            # the augmented cascade step
+            launches["cascade"], calls, cache, sweeps, _ = run_cli(
+                [c10, "--dataset_cfg", ds_10, "--root", root, "-c",
+                 f"{s_run}:{CLI_S_STEPS}", "--clear_steps", "--device_cache",
+                 str(CLI_SLOTS)], "cascade stage, device cache",
+                cli_want(CLI_CASCADE_STEPS, per_cascade,
+                         validations(CLI_CASCADE_STEPS) * val_forwards,
+                         CASCADE_FWD))
+            all_calls += calls
+            (c_run,) = [f[:-4] for f in os.listdir(os.path.join(
+                root, "logs")) if f.endswith(".log") and f[:-4] != s_run]
+            rows = train_log(root, c_run, CLI_CASCADE_STEPS, "cascade stage")
+            c_ck = checkpoint_of(root, c_run, CLI_CASCADE_STEPS,
+                                 "MaskFlownet")
+            with np.load(s_ck) as sz, np.load(c_ck) as cz:
+                head = [k for k in sz.files if k.startswith("p:")]
+                require(head and all(np.array_equal(
+                    cz[f"p:{HEAD_SCOPE}/{k[2:]}"], sz[k]) for k in head),
+                    "cli cascade: the head's parameters changed")
+            print(f"cli cascade stage: the head's {len(head)} parameters "
+                  f"bitwise those of the S run's step-{CLI_S_STEPS} "
+                  f"checkpoint", flush=True)
+            out["cascade"] = {"echo_factor": cache.echo_factor,
+                              "transfers": cache.transfers}
+            stages.append(("cascade", "cascade stage, device cache", rows,
+                           sweeps))
+            for key, what, rows, sweeps in stages:
+                last = rows[-1]
+                ms, load_ms = last["total_time"] * 1e3, \
+                    last["loading_time"] * 1e3
+                val_s, frames = map(sum, zip(*sweeps))
+                out[key].update(ms_per_step=ms, loading_ms_per_step=load_ms,
+                                samples_per_s=b * 1e3 / ms,
+                                validation_ms_per_frame=val_s * 1e3 / frames)
+                echo = (f", echo_factor {out[key]['echo_factor']:.3f} "
+                        f"({out[key]['transfers']} transfers)"
+                        if "echo_factor" in out[key] else "")
+                print(f"cli {what}, bf16 {b}x{AUG_SRC_HW[0]}x{AUG_SRC_HW[1]}"
+                      f" -> {TRAIN_HW[0]}x{TRAIN_HW[1]}: the log's moving "
+                      f"averages at step {int(last['steps'])}: total_time "
+                      f"{ms:.0f} ms/step ({b * 1e3 / ms:.2f} samples/s), "
+                      f"loading_time {load_ms:.0f} ms/step{echo}; "
+                      f"validation {val_s * 1e3 / frames:.3f} ms/frame "
+                      f"({len(sweeps)} sweeps, {frames} frames) ({smi})",
+                      flush=True)
+
+            # 4. --valid, f32, on the card and on the CPU (the deform
+            # kernels' form on both: their plain pair on the CPU)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+            valid = [c10, "--dataset_cfg", ds_10, "--root", root, "-c",
+                     c_run, "--valid", "--compute_dtype", "float32",
+                     "--resize", CLI_RESIZE]
+            sintel_batches = 2 * math.ceil((CLI_SINTEL_FRAMES - 1) / b) + \
+                2 * math.ceil(2 * (CLI_SINTEL_FRAMES - 1) / b)
+            kitti_batches = 2 * math.ceil((CLI_KITTI_TRAIN - 1) / b)
+            launches["valid"], calls, _, _, card_s = run_cli(
+                valid, "--valid, the card",
+                cli_want(0, {}, sintel_batches + kitti_batches, CASCADE_FWD))
+            all_calls += calls
+            val_log = os.path.join(root, "logs", "val", c_run + ".val.log")
+
+            def val_values():
+                with open(val_log) as fp:
+                    return [ln.split("] ", 1)[1].split(", ", 1)[1].strip()
+                            .split("=") for ln in fp]
+
+            card = val_values()
+            with mock.patch.object(
+                    deform_module, "resolve_method",
+                    lambda method, device: "kernel" if method == "auto"
+                    else method):
+                _, _, _, _, cpu_s = run_cli(valid + ["--device", "cpu"],
+                                            "--valid, the CPU", {})
+            cpu = val_values()[len(card):]
+            require([k for k, _ in card] == [k for k, _ in cpu] and
+                    len(card) == 8, f"cli --valid logged {card} and {cpu}")
+            worst = max(abs(float(a) - float(c)) / abs(float(c))
+                        for (_, a), (_, c) in zip(card, cpu))
+            print("cli --valid f32 at " + CLI_RESIZE + ", card vs CPU: " +
+                  ", ".join(f"{k} {a} vs {c}" for (k, a), (_, c) in
+                            zip(card, cpu)) + f"; worst relative difference "
+                  f"{worst:.3e} (tol {CLI_VALID_RTOL}); card {card_s:.3f} "
+                  f"s, CPU {cpu_s:.3f} s", flush=True)
+            require(worst <= CLI_VALID_RTOL, "cli --valid: card and CPU "
+                    "disagree")
+            out["valid_worst_rel"] = worst
+
+            # 5. --predict, and Trainer.predict on the same frames with the
+            # same weights (cuDNN held to its deterministic algorithms:
+            # its default transposed convs may sum in another order)
+            torch.backends.cudnn.deterministic = True
+            try:
+                launches["predict"], calls, _, _, _ = run_cli(
+                    [c10, "--dataset_cfg", ds_10, "--root", root, "-c",
+                     c_run, "--predict"], "--predict",
+                    cli_want(0, {}, 3, CASCADE_FWD))
+                all_calls += calls
+                trainer = Trainer(cli_module.build_settings(
+                    cli_module.parse_args([c10, "--dataset_cfg", ds_10]),
+                    load_config(c10), load_config(ds_10))[0], device="cuda")
+                trainer.load(c_ck, load_states=False)
+                flows_dir = os.path.join(root, "flows", os.path.basename(
+                    c_ck)[:-4])
+                test = sintel.list_data()["test"]["final"]
+                files = 0
+                for (img1, _), (flow, _, _) in zip(test, trainer.predict(
+                        [sintel.load(p) for p, _ in test],
+                        [sintel.load(p) for _, p in test], batch_size=b,
+                        resize=(448, 1024))):
+                    got = codecs.flo_load(os.path.join(
+                        flows_dir, "final", os.path.basename(
+                            os.path.dirname(img1)),
+                        os.path.basename(img1)[:-4] + ".flo"))
+                    require(np.array_equal(got, flow[..., ::-1]),
+                            f"cli --predict: {img1}'s .flo differs from "
+                            f"Trainer.predict")
+                    files += 1
+                testing = kitti.read_dataset_testing()
+                for ed in ("2012", "2015"):
+                    flows = list(trainer.predict(
+                        testing[ed]["image_0"], testing[ed]["image_1"],
+                        batch_size=b, resize=(512, 1152)))
+                    names = sorted(os.listdir(os.path.join(
+                        flows_dir, "kitti_" + ed)))
+                    require(names == ["%06d_10.png" % k
+                                      for k in range(len(flows))] and flows,
+                            f"cli --predict: KITTI {ed} wrote {names}")
+                    for k, (flow, _, _) in enumerate(flows):
+                        require(np.array_equal(codecs.png16_load(
+                            os.path.join(flows_dir, "kitti_" + ed,
+                                         names[k])),
+                            codecs.kitti_flow_encode(flow)),
+                            f"cli --predict: KITTI {ed} {names[k]} differs "
+                            f"from Trainer.predict")
+                        files += 1
+                del trainer
+            finally:
+                torch.backends.cudnn.deterministic = False
+            require(files == CLI_SINTEL_TEST - 1 + 2 * (
+                (2 * CLI_KITTI_TEST - 1) // 2), f"cli --predict: {files} "
+                "files")
+            print(f"cli --predict: {files} files (Sintel .flo, KITTI PNG16) "
+                  f"equal to Trainer.predict on the same frames", flush=True)
+    check_uncovered(all_calls, gen, "cli")
+    return launches, out
+
+
 def print_deform_ptxas(log: str) -> None:
     """One line a deform kernel from ``nvcc -Xptxas -v``: registers, spill
     stores and loads, and the dynamic shared memory it is launched with
@@ -2111,6 +2656,9 @@ def main() -> int:
     with phase("input"):
         input_launches, input_numbers = drive_input(smi)
 
+    with phase("cli"):
+        cli_launches, cli_numbers = drive_cli(smi, gen)
+
     def entry(name, source, replaces, timing, err, launched, shapes,
               **extra):
         if "bound_ms" in timing:
@@ -2137,7 +2685,12 @@ def main() -> int:
             "cascade_train_ms_per_step": cascade_ms_step,
             "cascade_train_samples_per_s": cascade_samples_s,
             "input_train": input_numbers,
-            "launches_input_train": input_launches[name], **extra}
+            "launches_input_train": input_launches[name],
+            "cli": cli_numbers,
+            "launches_cli_s": cli_launches["s"].get(name, 0),
+            "launches_cli_s_host": cli_launches["s_host"].get(name, 0),
+            "launches_cli_cascade": cli_launches["cascade"].get(name, 0),
+            **extra}
 
     def deform_timing(key):
         """The sums over the train step's four levels; the bound is the sum

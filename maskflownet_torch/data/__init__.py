@@ -1,7 +1,9 @@
-from maskflownet_torch.data import chairs, codecs, paths, synthetic
+from maskflownet_torch.data import (chairs, codecs, hd1k, kitti, paths,
+                                    sintel, synthetic, things3d)
 from maskflownet_torch.data.device_cache import DeviceBatchCache
 from maskflownet_torch.data.loader import Dataset, TrainLoader, with_mask
 from maskflownet_torch.data.resize import resize_bilinear_np
 
 __all__ = ["Dataset", "DeviceBatchCache", "TrainLoader", "chairs", "codecs",
-           "paths", "resize_bilinear_np", "synthetic", "with_mask"]
+           "hd1k", "kitti", "paths", "resize_bilinear_np", "sintel",
+           "synthetic", "things3d", "with_mask"]

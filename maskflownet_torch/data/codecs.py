@@ -10,8 +10,9 @@ same files.
     filters, unfiltered in numpy), since neither this package nor the
     machines it runs on may rely on a 16-bit-capable PNG library.
 
-The JAX package's ``image_load`` (8-bit images through PIL) has no copy
-here yet: it comes with the Sintel/KITTI readers that call it.
+  * 8-bit PNG images (``image_load``): the JAX package decodes them
+    through PIL; this decoder is zlib and numpy (the same arrays for
+    every type it accepts, and an error for the rest).
 """
 
 from __future__ import annotations
@@ -101,45 +102,49 @@ def _png_chunks(data: bytes):
 
 
 def _unfilter(raw: np.ndarray, filters: np.ndarray, bpp: int) -> np.ndarray:
-    """PNG unfilter (per scanline; Sub vectorized via cumulative sums,
-    Average/Paeth per pixel)."""
+    """PNG unfilter of (h, stride) filtered bytes, each row by its own
+    filter type (None, Sub, Up, Average, Paeth), ``bpp`` bytes a pixel
+    (1 for bit depths below 8).
+
+    A pixel's bytes depend only on its left, upper and upper-left
+    neighbours, so the rows are swept as anti-diagonals: pixel (y, x) is
+    decoded at step x + y, with every row's pixel of that step at once.
+    The image is held skewed (row y shifted right by y) so that each step
+    reads and writes whole slices."""
     h, stride = raw.shape
-    out = np.zeros_like(raw)
+    w = stride // bpp
+    steps = w + h - 1
+    px = raw.reshape(h, w, bpp).astype(np.int16)
+    # skewed[t, y] is pixel (y, t - y); out_s has two leading zero steps
+    # and a leading zero row, so that neighbours outside the image read 0
+    skewed = np.zeros((steps, h, bpp), np.int16)
+    valid = np.zeros((steps, h, 1), bool)
     for y in range(h):
-        ft = int(filters[y])
-        row = raw[y].astype(np.int32)
-        prev = out[y - 1].astype(np.int32) if y > 0 else np.zeros(stride, np.int32)
-        if ft == 0:
-            out[y] = row.astype(np.uint8)
-        elif ft == 1:
-            px = row.reshape(-1, bpp)
-            out[y] = (np.cumsum(px, axis=0) % 256).astype(np.uint8).reshape(-1)
-        elif ft == 2:
-            out[y] = ((row + prev) % 256).astype(np.uint8)
-        elif ft == 3:
-            o = np.zeros(stride, np.int32)
-            for i in range(stride):
-                left = o[i - bpp] if i >= bpp else 0
-                o[i] = (row[i] + ((left + prev[i]) >> 1)) % 256
-            out[y] = o.astype(np.uint8)
-        elif ft == 4:
-            o = np.zeros(stride, np.int32)
-            for i in range(stride):
-                a = o[i - bpp] if i >= bpp else 0
-                b = prev[i]
-                cc = prev[i - bpp] if i >= bpp else 0
-                p = a + b - cc
-                pa, pb, pc = abs(p - a), abs(p - b), abs(p - cc)
-                pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else cc)
-                o[i] = (row[i] + pred) % 256
-            out[y] = o.astype(np.uint8)
-        else:
-            raise ValueError(f"unknown PNG filter {ft}")
-    return out
+        skewed[y:y + w, y] = px[y]
+        valid[y:y + w, y] = True
+    out_s = np.zeros((steps + 2, h + 1, bpp), np.int16)
+    ft = np.asarray(filters, np.int64).reshape(h, 1)
+    if ((ft < 0) | (ft > 4)).any():
+        raise ValueError(f"unknown PNG filter {int(ft[(ft < 0) | (ft > 4)][0])}")
+    sub, up, avg, paeth = (ft == 1), (ft == 2), (ft == 3), (ft == 4)
+    for t in range(steps):
+        a = out_s[t + 1, 1:]        # left: (y, x - 1), step t - 1
+        b = out_s[t + 1, :-1]       # up: (y - 1, x), step t - 1
+        c = out_s[t, :-1]           # up-left: (y - 1, x - 1), step t - 2
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+        pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        pred = np.where(paeth, pred, np.where(avg, (a + b) >> 1, np.where(
+            up, b, np.where(sub, a, 0))))
+        out_s[t + 2, 1:] = np.where(valid[t], (skewed[t] + pred) & 255, 0)
+    out = np.empty((h, w, bpp), np.uint8)
+    for y in range(h):
+        out[y] = out_s[y + 2:y + 2 + w, y + 1]
+    return out.reshape(h, stride)
 
 
-def png16_load(path: str) -> np.ndarray:
-    """Load a 16-bit PNG -> (H, W, C) uint16 (C = 1 gray or 3 RGB)."""
+def _png_read(path: str):
+    """(width, height, bit depth, colour type, unfiltered rows (h, stride)
+    uint8) of a non-interlaced PNG; every IDAT chunk, in order."""
     with open(path, "rb") as fp:
         data = fp.read()
     if not data.startswith(_PNG_SIG):
@@ -154,15 +159,49 @@ def png16_load(path: str) -> np.ndarray:
                 raise ValueError(f"{path}: interlaced PNG unsupported")
         elif typ == b"IDAT":
             idat.append(payload)
-    if depth not in (8, 16):
-        raise ValueError(f"{path}: unsupported bit depth {depth}")
-    channels = {0: 1, 2: 3, 4: 2, 6: 4}[ctype]
-    bpp = channels * depth // 8
-    stride = w * bpp
+    channels = {0: 1, 2: 3, 4: 2, 6: 4}.get(ctype)
+    if channels is None:
+        raise ValueError(f"{path}: unsupported PNG colour type {ctype} "
+                         f"(palette)")
+    bpp = max(1, channels * depth // 8)
+    stride = (w * channels * depth + 7) // 8
     raw = zlib.decompress(b"".join(idat))
     arr = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
     filters = np.ascontiguousarray(arr[:, 0])
     body = _unfilter(np.ascontiguousarray(arr[:, 1:]), filters, bpp)
+    return w, h, depth, channels, body
+
+
+def image_load(path: str) -> np.ndarray:
+    """8-bit PNG -> uint8 array, what the JAX package's ``image_load``
+    (PIL, ``np.asarray``) returns for it: gray (bit depth 8, or 1 with
+    values 0 and 1) stacked to (H, W, 3); gray + alpha as (H, W, 2); RGB
+    as (H, W, 3); RGBA's first three channels. Decoded here with zlib and
+    numpy. Every other PNG raises: 16-bit (the JAX function wraps its
+    values to uint8), palette (it returns the indices), interlaced, and
+    bit depths 2 and 4; so does a file that is not a PNG (``ppm_load``
+    reads FlyingChairs' PPMs)."""
+    w, h, depth, channels, body = _png_read(path)
+    if not (depth == 8 or (depth == 1 and channels == 1)):
+        raise ValueError(f"{path}: unsupported PNG bit depth {depth} with "
+                         f"{channels} channels (8-bit, or 1-bit gray, only)")
+    if depth == 1:
+        img = np.unpackbits(body, axis=1)[:, :w].reshape(h, w, 1)
+    else:
+        img = body.reshape(h, w, channels)
+    if channels == 1:
+        img = np.repeat(img, 3, axis=2)
+    elif channels == 4:
+        img = img[..., :3]
+    return np.ascontiguousarray(img, dtype=np.uint8)
+
+
+def png16_load(path: str) -> np.ndarray:
+    """Load a 16-bit PNG -> (H, W, C) uint16 (C = 1 gray or 3 RGB)."""
+    w, h, depth, channels, body = _png_read(path)
+    if depth not in (8, 16):
+        raise ValueError(f"{path}: unsupported bit depth {depth}")
+    stride = body.shape[1]
     if depth == 16:
         img = body.reshape(h, stride).view(">u2").astype(np.uint16)
     else:

@@ -11,7 +11,8 @@ Replicates the reference loader semantics (``main.py:421-509``):
     (dy, dx) so channel 1 is negated),
   * a mixer assembling batches with a fixed per-dataset sample count
     (dataset mixing by list replication, ``main.py:244-260``),
-  * bounded queues for prefetch.
+  * bounded queues for prefetch, and a ``stop()`` that ends every thread
+    (the JAX loader's threads run until the interpreter exits).
 
 Per-host sharding (each host keeps every ``num_shards``-th epoch index,
 offset by its ``shard_index``) and NHWC output: the device step takes
@@ -26,7 +27,7 @@ arrays.
 from __future__ import annotations
 
 import threading
-from queue import Queue
+from queue import Empty, Full, Queue
 
 import numpy as np
 
@@ -37,6 +38,9 @@ import numpy as np
 # label noise)
 QUEUE_DEPTH, BATCH_DEPTH = 100, 10
 FLOW_DTYPE = np.float16
+# how often a thread blocked on a queue looks at its stop event, and how
+# long TrainLoader.stop() waits for each thread
+POLL_S, JOIN_TIMEOUT_S = 0.1, 30.0
 
 
 class Dataset:
@@ -79,10 +83,37 @@ def _crop_flip(items: list[np.ndarray], orig_shape,
     return out
 
 
+def _put(queue: Queue, item, stop: threading.Event | None) -> bool:
+    """``queue.put(item)``; with ``stop``, give up (False) once it is set."""
+    while stop is not None:
+        if stop.is_set():
+            return False
+        try:
+            queue.put(item, timeout=POLL_S)
+            return True
+        except Full:
+            continue
+    queue.put(item)
+    return True
+
+
+def _get(queue: Queue, stop: threading.Event | None):
+    """``queue.get()``; with ``stop``, give up (None) once it is set."""
+    while stop is not None:
+        if stop.is_set():
+            return None
+        try:
+            return queue.get(timeout=POLL_S)
+        except Empty:
+            continue
+    return queue.get()
+
+
 def iterate_data(queue: Queue, dataset: Dataset, orig_shape, seed: int,
-                 shard_index: int = 0, num_shards: int = 1) -> None:
+                 shard_index: int = 0, num_shards: int = 1,
+                 stop: threading.Event | None = None) -> None:
     """Producer thread: shuffled epochs, sharded across hosts, crop+flip,
-    flow in FLOW_DTYPE."""
+    flow in FLOW_DTYPE; returns once ``stop`` is set."""
     rng = np.random.RandomState(seed)
     n = len(dataset)
     indices = np.arange(n)
@@ -95,19 +126,27 @@ def iterate_data(queue: Queue, dataset: Dataset, orig_shape, seed: int,
                 items[2] = items[2].astype(np.float32)
             items = _crop_flip(items, orig_shape, rng)
             items[2] = items[2].astype(FLOW_DTYPE)
-            queue.put(items)
+            if not _put(queue, items, stop):
+                return
 
 
 def batch_samples(in_queues: list[Queue], out_queue: Queue,
-                  batch_size: int) -> None:
-    """Mixer thread: fixed-ratio assembly (reference ``main.py:480-486``)."""
+                  batch_size: int,
+                  stop: threading.Event | None = None) -> None:
+    """Mixer thread: fixed-ratio assembly (reference ``main.py:480-486``);
+    returns once ``stop`` is set."""
     per = batch_size // len(in_queues)
     while True:
         batch = []
         for q in in_queues:
             for _ in range(per):
-                batch.append(q.get())
-        out_queue.put([np.stack(x, axis=0) for x in zip(*batch)])
+                item = _get(q, stop)
+                if item is None:
+                    return
+                batch.append(item)
+        if not _put(out_queue, [np.stack(x, axis=0) for x in zip(*batch)],
+                    stop):
+            return
 
 
 class TrainLoader:
@@ -125,18 +164,20 @@ class TrainLoader:
                              f"the {len(datasets)} datasets")
         self.batch_queue: Queue = Queue(maxsize=BATCH_DEPTH)
         self._queues = [Queue(maxsize=QUEUE_DEPTH) for _ in datasets]
+        self._stop = threading.Event()
         self._threads = []
         for k, (q, ds) in enumerate(zip(self._queues, datasets)):
             t = threading.Thread(
                 target=iterate_data,
                 args=(q, ds, orig_shape, seed * 1000 + k, shard_index,
-                      num_shards),
+                      num_shards, self._stop),
                 daemon=True)
             t.start()
             self._threads.append(t)
         t = threading.Thread(
             target=batch_samples,
-            args=(self._queues, self.batch_queue, batch_size), daemon=True)
+            args=(self._queues, self.batch_queue, batch_size, self._stop),
+            daemon=True)
         t.start()
         self._threads.append(t)
 
@@ -144,6 +185,15 @@ class TrainLoader:
         """Next batch: [img1, img2, flow] or [img1, img2, flow, mask],
         stacked NHWC."""
         return self.batch_queue.get()
+
+    def stop(self) -> None:
+        """Stop the producers and the mixer and wait for them (each ends
+        within ``POLL_S`` of a blocked queue operation, or after the
+        sample it is decoding). Stop the loader's consumers first: a
+        ``get()`` after ``stop()`` may wait for ever."""
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=JOIN_TIMEOUT_S)
 
 
 def with_mask(batch):

@@ -56,8 +56,13 @@ class Predictor:
         Returns f32 tensors on the device at input resolution: flow
         (B,2,H,W) in (dy, dx) pixels, occlusion (B,1,H,W) (the cascade:
         flow2's channel 0), warped image 2 (B,3,H,W)."""
-        img1 = torch.as_tensor(img1, dtype=torch.float32, device=self.device)
-        img2 = torch.as_tensor(img2, dtype=torch.float32, device=self.device)
+        # contiguous NCHW: a permuted view (an NHWC array transposed, as
+        # predict() and Trainer.validate() pass) would carry its strides
+        # through the convs, and the kernels take contiguous features only
+        img1 = torch.as_tensor(img1, dtype=torch.float32,
+                               device=self.device).contiguous()
+        img2 = torch.as_tensor(img2, dtype=torch.float32,
+                               device=self.device).contiguous()
         h, w = img1.shape[2:]
         if resize is None:
             wh, ww = h + (-h) % 64, w + (-w) % 64

@@ -85,6 +85,13 @@ def nchw_batch(batch):
     return tuple(t.permute(0, 3, 1, 2).contiguous() for t in batch)
 
 
+def sync_metrics(metrics: dict) -> dict[str, float]:
+    """Wait for a step's metrics (0-d device tensors) and return them as
+    floats: the JAX package's ``sync_metrics``, the training loop's only
+    read-back of the device."""
+    return {k: float(v) for k, v in metrics.items()}
+
+
 def _to_device(draws, dev):
     return None if draws is None else {
         k: None if v is None else v.to(dev) for k, v in draws.items()}
@@ -152,9 +159,13 @@ class Trainer:
         own."""
         s = self.settings
         dev, dtype = self.device, s.dtype()
-        img1 = torch.as_tensor(img1, device=dev).float().div(255.0)
-        img2 = torch.as_tensor(img2, device=dev).float().div(255.0)
-        flow = torch.as_tensor(flow, device=dev).float()
+        # contiguous NCHW (a permuted view's strides would reach the
+        # kernels, which take contiguous tensors only)
+        img1 = torch.as_tensor(img1, device=dev).contiguous().float().div(
+            255.0)
+        img2 = torch.as_tensor(img2, device=dev).contiguous().float().div(
+            255.0)
+        flow = torch.as_tensor(flow, device=dev).contiguous().float()
         b, _, h, w = flow.shape
         if mask is None:
             mask = torch.ones((b, 1, 1, 1), device=dev)
@@ -213,7 +224,7 @@ class Trainer:
         self.apply_gradients(lr)
         self.steps += 1
         metrics = {"loss": loss.detach(), "epe": epe}
-        return {k: float(v) for k, v in metrics.items()} if sync else metrics
+        return sync_metrics(metrics) if sync else metrics
 
     def train_batch_device(self, batch, lr: float = 1e-4):
         """One step on a device-resident batch laid out as ``TrainLoader``,

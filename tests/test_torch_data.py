@@ -377,3 +377,19 @@ def test_with_mask_appends_the_clis_mask():
     assert (got[3] == 255).all()
     masked = (*batch, np.zeros((3, 8, 8, 1), np.uint8))
     _equal(loader.with_mask(list(masked)), masked)
+
+
+@pytest.mark.parametrize("drain", [0, 3])
+def test_train_loader_stop_ends_every_thread(drain):
+    """``stop()`` ends the producers and the mixer, whether they block on
+    full queues or are still producing (the JAX loader's run until exit),
+    and the batches served before it are the JAX loader's."""
+    ds = loader.Dataset(_columns(np.random.RandomState(15), 3, (8, 8)))
+    ours = loader.TrainLoader([ds] * 2, 2, (8, 8), seed=4)
+    theirs = jax_loader.TrainLoader([jax_loader.Dataset(ds.arrays)] * 2, 2,
+                                    (8, 8), seed=4)
+    for _ in range(drain):
+        _equal(ours.get(), theirs.get())
+    ours.stop()
+    assert len(ours._threads) == 3
+    assert not any(t.is_alive() for t in ours._threads)

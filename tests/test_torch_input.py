@@ -339,3 +339,38 @@ def test_do_batch_and_predict_delegate_to_predictor(params, dtype):
         assert [a.shape for a in g] == [(*CROP, 2), (*CROP, 1), (*CROP, 3)]
         for a, b in zip(g, w):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("aug", [False, True])
+def test_permuted_inputs_reach_the_kernels_contiguous(params, aug,
+                                                      monkeypatch):
+    """``predict`` and ``validate`` hand ``do_batch`` NHWC frames
+    transposed to NCHW views, and ``train_batch`` may be given such views;
+    every cost volume must still get contiguous features and the sampler a
+    contiguous image, since the CUDA kernels refuse any other layout (the
+    CPU's plain versions take any strides, so only this spy sees it)."""
+    import maskflownet_torch.augment.geometry as geometry
+    import maskflownet_torch.models.maskflownet as model_module
+    seen = []
+
+    def spy(real, *which):
+        def f(*args, **kwargs):
+            seen.append(all(args[i].is_contiguous() for i in which))
+            return real(*args, **kwargs)
+        return f
+
+    monkeypatch.setattr(model_module, "correlation",
+                        spy(model_module.correlation, 0, 1))
+    monkeypatch.setattr(geometry, "affine_sample",
+                        spy(geometry.affine_sample, 0))
+    trainer = Trainer(settings(aug), device="cpu", params=params)
+    img1, img2, flow, _ = nhwc_batch(5, SRC if aug else CROP, "per-sample")
+    views = [x.astype(np.float32).transpose(0, 3, 1, 2)
+             for x in (img1, img2, flow)]
+    trainer.train_batch(*views)
+    frames = [list(img1[:, :CROP[0], :CROP[1]]),
+              list(img2[:, :CROP[0], :CROP[1]])]
+    list(trainer.predict(*frames, batch_size=2))
+    flows = [f[:CROP[0], :CROP[1]].astype(np.float32) for f in flow]
+    trainer.validate(*frames, flows, batch_size=2)
+    assert len(seen) == (2 if aug else 0) + 5 * 3 and all(seen), seen

@@ -4,6 +4,7 @@ card's machine lacks, and its entry points refuse to run on the CPU unless
 asked to."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -49,7 +50,12 @@ def test_importing_the_port_loads_no_banned_module():
             "maskflownet_torch.data, maskflownet_torch.data.loader, "
             "maskflownet_torch.data.device_cache, "
             "maskflownet_torch.parallel, "
-            "maskflownet_torch.tools.input_probe\n"
+            "maskflownet_torch.tools.input_probe, "
+            "maskflownet_torch.cli.main, maskflownet_torch.config, "
+            "maskflownet_torch.data.sintel, maskflownet_torch.data.kitti, "
+            "maskflownet_torch.data.hd1k, maskflownet_torch.data.things3d, "
+            "maskflownet_torch.augment.host_geometry, "
+            "maskflownet_torch.tools.submission\n"
             f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -58,8 +64,9 @@ def test_importing_the_port_loads_no_banned_module():
     assert out.stdout.strip() == "[]", out.stdout
 
 
-def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
+def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
     from maskflownet_torch import get_device
+    from maskflownet_torch.cli.main import main as cli_main
     from maskflownet_torch.data import DeviceBatchCache
     from maskflownet_torch.inference import Predictor
     from maskflownet_torch.parallel import DevicePrefetcher
@@ -75,4 +82,7 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
         DeviceBatchCache(lambda: None)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DevicePrefetcher(lambda: None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_main(["MaskFlownet_S.yaml", "--root", str(tmp_path)])
+    assert not os.listdir(tmp_path)
     assert get_device("cpu") == torch.device("cpu")
