@@ -127,7 +127,24 @@ Phases, each timed on its own line:
      check covered is held against the plain versions. It prints each
      stage's ms/step and samples/s from the log's moving averages
      (``total_time``, ``loading_time``), the cache's ``echo_factor`` and
-     the validation sweeps' ms/frame.
+     the validation sweeps' ms/frame;
+ 11. tools: the published-checkpoint tools at the published widths, on
+     phase 10's Sintel and KITTI trees. Gluon ``.params`` files of
+     MaskFlownet_S and the cascade (seeded, He-scale weights; the keys
+     and layouts Gluon writes) through ``tools.import_mxnet``: the read,
+     the conversion and the ``.npz`` write timed with their bytes, the
+     ``.npz`` read back by ``interop`` bitwise the in-memory import, and
+     the ``bgr`` import on channel-reversed images against the ``rgb``
+     import (f32, 64x128). ``tools.infer``: ``-i`` on a 436x1024 pair with
+     each checkpoint and ``--frames`` on 5 frames (``--batch 4``), bf16,
+     its ``.flo`` bitwise and its PNGs equal to ``Trainer.predict`` on the
+     same frames; ``--video`` without OpenCV raises ``ImportError``.
+     ``tools.parity_eval`` with the S ``.params`` file: all four rows
+     computed, an absent root SKIPPED, nothing mounted exit code 2, and
+     the card against the CPU in f32 (one pair a row, KITTI read at
+     256x128) within 1e-4 relative. Exact launch counts a tool run; the
+     import's seconds, ``infer``'s ms/frame beside ``do_batch``'s and
+     ``parity_eval``'s ms per frame per row.
 The card-vs-CPU comparisons run the deform kernels' form on both sides
 (``deform="kernel"``: its plain pair on the CPU), so that both take the
 same sample coordinates.
@@ -141,7 +158,8 @@ to the tolerance, with one only the second.
 The warm-up of every bf16 main path records each correlation and deform
 launch by kernel, shape, dtype (and the gradients a deform backward asks
 for) and requires each to be one that phase 3 or 4 held against the plain
-version (phase 10 holds the shapes its runs launched after them). Then
+version (phases 10 and 11 hold the shapes their runs launched after
+them). Then
 one JSON line describing the kernels, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line; so does a machine without CUDA.
@@ -154,6 +172,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -171,6 +190,9 @@ import maskflownet_torch.cli.main as cli_module
 import maskflownet_torch.models.maskflownet as model_module
 import maskflownet_torch.ops.correlation as corr_module
 import maskflownet_torch.ops.deform as deform_module
+import maskflownet_torch.tools.import_mxnet as imx_module
+import maskflownet_torch.tools.infer as infer_module
+import maskflownet_torch.tools.parity_eval as parity_module
 from maskflownet_torch.augment import draw_geometry
 from maskflownet_torch.augment.geometry import sample_grids
 from maskflownet_torch import interop
@@ -194,6 +216,7 @@ from maskflownet_torch.ops.deform import (_warpconv, deform_bwd,
 from maskflownet_torch.ops.warp import base_grid, normalized_to_pixels
 from maskflownet_torch.parallel import DevicePrefetcher
 from maskflownet_torch.tools import grad_parity
+from maskflownet_torch.tools.flow_vis import flow_to_color
 from maskflownet_torch.training import (TrainSettings, Trainer,
                                         find_checkpoints, nchw_batch)
 
@@ -339,6 +362,17 @@ CLI_SLOTS = 8
 CLI_SINTEL_FRAMES, CLI_SINTEL_TEST = 4, 3
 CLI_KITTI_TRAIN, CLI_KITTI_TEST, CLI_KITTI_HW = 3, 2, (370, 1224)
 CLI_RESIZE, CLI_VALID_RTOL = "128,256", 1e-4
+# the tools phase: Gluon checkpoints of both networks at the published
+# widths, drawn from TOOLS_SEED; ``infer -i`` on one Sintel pair with
+# each, ``--frames`` on TOOLS_FRAMES frames, TOOLS_BATCH pairs a batch;
+# the bgr import on channel-reversed images against the rgb import at
+# TOOLS_SMALL_HW (f32), within BGR_REL of the outputs' scale;
+# ``parity_eval`` on the cli phase's trees, and the card against the CPU
+# (f32, one pair a row, KITTI read at PARITY_KITTI_CUT, width x height)
+# within PARITY_RTOL; ``do_batch`` timed over TOOLS_REPS calls
+TOOLS_SEED, TOOLS_FRAMES, TOOLS_BATCH, TOOLS_REPS = 11, 5, 4, 10
+TOOLS_SMALL_HW, BGR_REL = (64, 128), 2e-5
+PARITY_KITTI_CUT, PARITY_RTOL = (256, 128), 1e-4
 # every (kernel, shape, md or Cout, dtype[, needs]) that a check held
 # against its plain version (keys as ``launch_key`` makes them); each main
 # path's launches must lie in it
@@ -2332,13 +2366,14 @@ def check_uncovered(calls, gen, what: str) -> None:
     require_checked(calls, what)
 
 
-def drive_cli(smi: str, gen):
+def drive_cli(smi: str, gen, tmp: str):
     """The training CLI (``python -m maskflownet_torch.cli.main``) in this
-    process on FlyingChairs, Sintel and KITTI trees: the S stage through
-    the device cache and through host geometry, the augmented cascade from
-    the first S run with its head frozen, ``--valid`` on the card and the
-    CPU, ``--predict`` against ``Trainer.predict``. Returns (the launches of
-    each stage, the phase's numbers)."""
+    process on FlyingChairs, Sintel and KITTI trees it writes under
+    ``tmp``: the S stage through the device cache and through host
+    geometry, the augmented cascade from the first S run with its head
+    frozen, ``--valid`` on the card and the CPU, ``--predict`` against
+    ``Trainer.predict``. Returns (the launches of each stage, the phase's
+    numbers, the readers' environment of the trees)."""
     b = presets.BATCH_SIZE["chairs"]
     out, launches, all_calls = {}, {}, []
     per_cached = {**S_STEP, "affine_sample": 2}
@@ -2350,210 +2385,577 @@ def drive_cli(smi: str, gen):
     def validations(steps):
         return 1 + steps // CLI_VAL_STEPS
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        rng = np.random.RandomState(7)
-        chairs_dir = os.path.join(tmp, "chairs")
-        os.makedirs(chairs_dir)
-        _, chairs_split = write_chairs_tree(chairs_dir)
-        env = {"MFN_CHAIRS_DIR": chairs_dir, "MFN_CHAIRS_SPLIT": chairs_split,
-               **write_sintel_tree(os.path.join(tmp, "sintel"), rng),
-               **write_kitti_tree(os.path.join(tmp, "kitti"), rng)}
-        s20 = cut_yaml("MaskFlownet_S.yaml", os.path.join(tmp, "s.yaml"),
-                       CLI_S_STEPS)
-        s10 = cut_yaml("MaskFlownet_S.yaml", os.path.join(tmp, "s_host.yaml"),
-                       CLI_HOST_STEPS)
-        c10 = cut_yaml("MaskFlownet.yaml", os.path.join(tmp, "cascade.yaml"),
-                       CLI_CASCADE_STEPS)
-        ds_s = cut_yaml("chairs.yaml", os.path.join(tmp, "chairs_s.yaml"),
-                        validation_steps=CLI_VAL_STEPS,
-                        checkpoint_steps=CLI_S_STEPS)
-        ds_10 = cut_yaml("chairs.yaml", os.path.join(tmp, "chairs_10.yaml"),
-                         validation_steps=CLI_VAL_STEPS,
-                         checkpoint_steps=CLI_VAL_STEPS)
-        print(f"cli: chairs ({INPUT_SAMPLES} pairs), Sintel (2 x "
-              f"{CLI_SINTEL_FRAMES} frames x clean/final, {CLI_SINTEL_TEST} "
-              f"test) and KITTI ({CLI_KITTI_TRAIN} + {CLI_KITTI_TEST} pairs "
-              f"an edition) trees written in {time.perf_counter() - t0:.3f} "
-              f"s", flush=True)
-        root, root_host = os.path.join(tmp, "exp"), os.path.join(tmp, "host")
-        with mock.patch.dict(os.environ, env):
-            # 1. the S stage through the device cache (--aug device)
-            launches["s"], calls, cache, sweeps, _ = run_cli(
-                [s20, "--dataset_cfg", ds_s, "--root", root,
-                 "--device_cache", str(CLI_SLOTS)], "S stage, device cache",
-                cli_want(CLI_S_STEPS, per_cached,
-                         validations(CLI_S_STEPS) * val_forwards, S_FWD))
-            all_calls += calls
-            (s_run,) = [f[:-4] for f in os.listdir(os.path.join(root, "logs"))
-                        if f.endswith(".log")]
-            rows = train_log(root, s_run, CLI_S_STEPS, "S stage")
-            s_ck = checkpoint_of(root, s_run, CLI_S_STEPS, "MaskFlownet_S")
-            out["s"] = {"echo_factor": cache.echo_factor,
-                        "transfers": cache.transfers}
-            stages = [("s", "S stage, device cache", rows, sweeps)]
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(7)
+    chairs_dir = os.path.join(tmp, "chairs")
+    os.makedirs(chairs_dir)
+    _, chairs_split = write_chairs_tree(chairs_dir)
+    env = {"MFN_CHAIRS_DIR": chairs_dir, "MFN_CHAIRS_SPLIT": chairs_split,
+           **write_sintel_tree(os.path.join(tmp, "sintel"), rng),
+           **write_kitti_tree(os.path.join(tmp, "kitti"), rng)}
+    s20 = cut_yaml("MaskFlownet_S.yaml", os.path.join(tmp, "s.yaml"),
+                   CLI_S_STEPS)
+    s10 = cut_yaml("MaskFlownet_S.yaml", os.path.join(tmp, "s_host.yaml"),
+                   CLI_HOST_STEPS)
+    c10 = cut_yaml("MaskFlownet.yaml", os.path.join(tmp, "cascade.yaml"),
+                   CLI_CASCADE_STEPS)
+    ds_s = cut_yaml("chairs.yaml", os.path.join(tmp, "chairs_s.yaml"),
+                    validation_steps=CLI_VAL_STEPS,
+                    checkpoint_steps=CLI_S_STEPS)
+    ds_10 = cut_yaml("chairs.yaml", os.path.join(tmp, "chairs_10.yaml"),
+                     validation_steps=CLI_VAL_STEPS,
+                     checkpoint_steps=CLI_VAL_STEPS)
+    print(f"cli: chairs ({INPUT_SAMPLES} pairs), Sintel (2 x "
+          f"{CLI_SINTEL_FRAMES} frames x clean/final, {CLI_SINTEL_TEST} "
+          f"test) and KITTI ({CLI_KITTI_TRAIN} + {CLI_KITTI_TEST} pairs "
+          f"an edition) trees written in {time.perf_counter() - t0:.3f} "
+          f"s", flush=True)
+    root, root_host = os.path.join(tmp, "exp"), os.path.join(tmp, "host")
+    with mock.patch.dict(os.environ, env):
+        # 1. the S stage through the device cache (--aug device)
+        launches["s"], calls, cache, sweeps, _ = run_cli(
+            [s20, "--dataset_cfg", ds_s, "--root", root,
+             "--device_cache", str(CLI_SLOTS)], "S stage, device cache",
+            cli_want(CLI_S_STEPS, per_cached,
+                     validations(CLI_S_STEPS) * val_forwards, S_FWD))
+        all_calls += calls
+        (s_run,) = [f[:-4] for f in os.listdir(os.path.join(root, "logs"))
+                    if f.endswith(".log")]
+        rows = train_log(root, s_run, CLI_S_STEPS, "S stage")
+        s_ck = checkpoint_of(root, s_run, CLI_S_STEPS, "MaskFlownet_S")
+        out["s"] = {"echo_factor": cache.echo_factor,
+                    "transfers": cache.transfers}
+        stages = [("s", "S stage, device cache", rows, sweeps)]
 
-            # 2. the S stage through host geometry (--aug host, the
-            # prefetcher), in a root of its own
-            launches["s_host"], calls, _, sweeps, _ = run_cli(
-                [s10, "--dataset_cfg", ds_10, "--root", root_host],
-                "S stage, host geometry",
-                cli_want(CLI_HOST_STEPS, S_STEP,
-                         validations(CLI_HOST_STEPS) * val_forwards, S_FWD))
-            all_calls += calls
-            (h_run,) = [f[:-4] for f in os.listdir(
-                os.path.join(root_host, "logs")) if f.endswith(".log")]
-            rows = train_log(root_host, h_run, CLI_HOST_STEPS, "host stage")
-            checkpoint_of(root_host, h_run, CLI_HOST_STEPS, "MaskFlownet_S")
-            out["s_host"] = {}
-            stages.append(("s_host", "S stage, host geometry", rows, sweeps))
+        # 2. the S stage through host geometry (--aug host, the
+        # prefetcher), in a root of its own
+        launches["s_host"], calls, _, sweeps, _ = run_cli(
+            [s10, "--dataset_cfg", ds_10, "--root", root_host],
+            "S stage, host geometry",
+            cli_want(CLI_HOST_STEPS, S_STEP,
+                     validations(CLI_HOST_STEPS) * val_forwards, S_FWD))
+        all_calls += calls
+        (h_run,) = [f[:-4] for f in os.listdir(
+            os.path.join(root_host, "logs")) if f.endswith(".log")]
+        rows = train_log(root_host, h_run, CLI_HOST_STEPS, "host stage")
+        checkpoint_of(root_host, h_run, CLI_HOST_STEPS, "MaskFlownet_S")
+        out["s_host"] = {}
+        stages.append(("s_host", "S stage, host geometry", rows, sweeps))
 
-            # 3. the cascade from the S run: load_head, the frozen head,
-            # the augmented cascade step
-            launches["cascade"], calls, cache, sweeps, _ = run_cli(
+        # 3. the cascade from the S run: load_head, the frozen head,
+        # the augmented cascade step
+        launches["cascade"], calls, cache, sweeps, _ = run_cli(
+            [c10, "--dataset_cfg", ds_10, "--root", root, "-c",
+             f"{s_run}:{CLI_S_STEPS}", "--clear_steps", "--device_cache",
+             str(CLI_SLOTS)], "cascade stage, device cache",
+            cli_want(CLI_CASCADE_STEPS, per_cascade,
+                     validations(CLI_CASCADE_STEPS) * val_forwards,
+                     CASCADE_FWD))
+        all_calls += calls
+        (c_run,) = [f[:-4] for f in os.listdir(os.path.join(
+            root, "logs")) if f.endswith(".log") and f[:-4] != s_run]
+        rows = train_log(root, c_run, CLI_CASCADE_STEPS, "cascade stage")
+        c_ck = checkpoint_of(root, c_run, CLI_CASCADE_STEPS,
+                             "MaskFlownet")
+        with np.load(s_ck) as sz, np.load(c_ck) as cz:
+            head = [k for k in sz.files if k.startswith("p:")]
+            require(head and all(np.array_equal(
+                cz[f"p:{HEAD_SCOPE}/{k[2:]}"], sz[k]) for k in head),
+                "cli cascade: the head's parameters changed")
+        print(f"cli cascade stage: the head's {len(head)} parameters "
+              f"bitwise those of the S run's step-{CLI_S_STEPS} "
+              f"checkpoint", flush=True)
+        out["cascade"] = {"echo_factor": cache.echo_factor,
+                          "transfers": cache.transfers}
+        stages.append(("cascade", "cascade stage, device cache", rows,
+                       sweeps))
+        for key, what, rows, sweeps in stages:
+            last = rows[-1]
+            ms, load_ms = last["total_time"] * 1e3, \
+                last["loading_time"] * 1e3
+            val_s, frames = map(sum, zip(*sweeps))
+            out[key].update(ms_per_step=ms, loading_ms_per_step=load_ms,
+                            samples_per_s=b * 1e3 / ms,
+                            validation_ms_per_frame=val_s * 1e3 / frames)
+            echo = (f", echo_factor {out[key]['echo_factor']:.3f} "
+                    f"({out[key]['transfers']} transfers)"
+                    if "echo_factor" in out[key] else "")
+            print(f"cli {what}, bf16 {b}x{AUG_SRC_HW[0]}x{AUG_SRC_HW[1]}"
+                  f" -> {TRAIN_HW[0]}x{TRAIN_HW[1]}: the log's moving "
+                  f"averages at step {int(last['steps'])}: total_time "
+                  f"{ms:.0f} ms/step ({b * 1e3 / ms:.2f} samples/s), "
+                  f"loading_time {load_ms:.0f} ms/step{echo}; "
+                  f"validation {val_s * 1e3 / frames:.3f} ms/frame "
+                  f"({len(sweeps)} sweeps, {frames} frames) ({smi})",
+                  flush=True)
+
+        # 4. --valid, f32, on the card and on the CPU (the deform
+        # kernels' form on both: their plain pair on the CPU)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        valid = [c10, "--dataset_cfg", ds_10, "--root", root, "-c",
+                 c_run, "--valid", "--compute_dtype", "float32",
+                 "--resize", CLI_RESIZE]
+        sintel_batches = 2 * math.ceil((CLI_SINTEL_FRAMES - 1) / b) + \
+            2 * math.ceil(2 * (CLI_SINTEL_FRAMES - 1) / b)
+        kitti_batches = 2 * math.ceil((CLI_KITTI_TRAIN - 1) / b)
+        launches["valid"], calls, _, _, card_s = run_cli(
+            valid, "--valid, the card",
+            cli_want(0, {}, sintel_batches + kitti_batches, CASCADE_FWD))
+        all_calls += calls
+        val_log = os.path.join(root, "logs", "val", c_run + ".val.log")
+
+        def val_values():
+            with open(val_log) as fp:
+                return [ln.split("] ", 1)[1].split(", ", 1)[1].strip()
+                        .split("=") for ln in fp]
+
+        card = val_values()
+        with mock.patch.object(
+                deform_module, "resolve_method",
+                lambda method, device: "kernel" if method == "auto"
+                else method):
+            _, _, _, _, cpu_s = run_cli(valid + ["--device", "cpu"],
+                                        "--valid, the CPU", {})
+        cpu = val_values()[len(card):]
+        require([k for k, _ in card] == [k for k, _ in cpu] and
+                len(card) == 8, f"cli --valid logged {card} and {cpu}")
+        worst = max(abs(float(a) - float(c)) / abs(float(c))
+                    for (_, a), (_, c) in zip(card, cpu))
+        print("cli --valid f32 at " + CLI_RESIZE + ", card vs CPU: " +
+              ", ".join(f"{k} {a} vs {c}" for (k, a), (_, c) in
+                        zip(card, cpu)) + f"; worst relative difference "
+              f"{worst:.3e} (tol {CLI_VALID_RTOL}); card {card_s:.3f} "
+              f"s, CPU {cpu_s:.3f} s", flush=True)
+        require(worst <= CLI_VALID_RTOL, "cli --valid: card and CPU "
+                "disagree")
+        out["valid_worst_rel"] = worst
+
+        # 5. --predict, and Trainer.predict on the same frames with the
+        # same weights (cuDNN held to its deterministic algorithms:
+        # its default transposed convs may sum in another order)
+        torch.backends.cudnn.deterministic = True
+        try:
+            launches["predict"], calls, _, _, _ = run_cli(
                 [c10, "--dataset_cfg", ds_10, "--root", root, "-c",
-                 f"{s_run}:{CLI_S_STEPS}", "--clear_steps", "--device_cache",
-                 str(CLI_SLOTS)], "cascade stage, device cache",
-                cli_want(CLI_CASCADE_STEPS, per_cascade,
-                         validations(CLI_CASCADE_STEPS) * val_forwards,
-                         CASCADE_FWD))
+                 c_run, "--predict"], "--predict",
+                cli_want(0, {}, 3, CASCADE_FWD))
             all_calls += calls
-            (c_run,) = [f[:-4] for f in os.listdir(os.path.join(
-                root, "logs")) if f.endswith(".log") and f[:-4] != s_run]
-            rows = train_log(root, c_run, CLI_CASCADE_STEPS, "cascade stage")
-            c_ck = checkpoint_of(root, c_run, CLI_CASCADE_STEPS,
-                                 "MaskFlownet")
-            with np.load(s_ck) as sz, np.load(c_ck) as cz:
-                head = [k for k in sz.files if k.startswith("p:")]
-                require(head and all(np.array_equal(
-                    cz[f"p:{HEAD_SCOPE}/{k[2:]}"], sz[k]) for k in head),
-                    "cli cascade: the head's parameters changed")
-            print(f"cli cascade stage: the head's {len(head)} parameters "
-                  f"bitwise those of the S run's step-{CLI_S_STEPS} "
-                  f"checkpoint", flush=True)
-            out["cascade"] = {"echo_factor": cache.echo_factor,
-                              "transfers": cache.transfers}
-            stages.append(("cascade", "cascade stage, device cache", rows,
-                           sweeps))
-            for key, what, rows, sweeps in stages:
-                last = rows[-1]
-                ms, load_ms = last["total_time"] * 1e3, \
-                    last["loading_time"] * 1e3
-                val_s, frames = map(sum, zip(*sweeps))
-                out[key].update(ms_per_step=ms, loading_ms_per_step=load_ms,
-                                samples_per_s=b * 1e3 / ms,
-                                validation_ms_per_frame=val_s * 1e3 / frames)
-                echo = (f", echo_factor {out[key]['echo_factor']:.3f} "
-                        f"({out[key]['transfers']} transfers)"
-                        if "echo_factor" in out[key] else "")
-                print(f"cli {what}, bf16 {b}x{AUG_SRC_HW[0]}x{AUG_SRC_HW[1]}"
-                      f" -> {TRAIN_HW[0]}x{TRAIN_HW[1]}: the log's moving "
-                      f"averages at step {int(last['steps'])}: total_time "
-                      f"{ms:.0f} ms/step ({b * 1e3 / ms:.2f} samples/s), "
-                      f"loading_time {load_ms:.0f} ms/step{echo}; "
-                      f"validation {val_s * 1e3 / frames:.3f} ms/frame "
-                      f"({len(sweeps)} sweeps, {frames} frames) ({smi})",
-                      flush=True)
-
-            # 4. --valid, f32, on the card and on the CPU (the deform
-            # kernels' form on both: their plain pair on the CPU)
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
-            valid = [c10, "--dataset_cfg", ds_10, "--root", root, "-c",
-                     c_run, "--valid", "--compute_dtype", "float32",
-                     "--resize", CLI_RESIZE]
-            sintel_batches = 2 * math.ceil((CLI_SINTEL_FRAMES - 1) / b) + \
-                2 * math.ceil(2 * (CLI_SINTEL_FRAMES - 1) / b)
-            kitti_batches = 2 * math.ceil((CLI_KITTI_TRAIN - 1) / b)
-            launches["valid"], calls, _, _, card_s = run_cli(
-                valid, "--valid, the card",
-                cli_want(0, {}, sintel_batches + kitti_batches, CASCADE_FWD))
-            all_calls += calls
-            val_log = os.path.join(root, "logs", "val", c_run + ".val.log")
-
-            def val_values():
-                with open(val_log) as fp:
-                    return [ln.split("] ", 1)[1].split(", ", 1)[1].strip()
-                            .split("=") for ln in fp]
-
-            card = val_values()
-            with mock.patch.object(
-                    deform_module, "resolve_method",
-                    lambda method, device: "kernel" if method == "auto"
-                    else method):
-                _, _, _, _, cpu_s = run_cli(valid + ["--device", "cpu"],
-                                            "--valid, the CPU", {})
-            cpu = val_values()[len(card):]
-            require([k for k, _ in card] == [k for k, _ in cpu] and
-                    len(card) == 8, f"cli --valid logged {card} and {cpu}")
-            worst = max(abs(float(a) - float(c)) / abs(float(c))
-                        for (_, a), (_, c) in zip(card, cpu))
-            print("cli --valid f32 at " + CLI_RESIZE + ", card vs CPU: " +
-                  ", ".join(f"{k} {a} vs {c}" for (k, a), (_, c) in
-                            zip(card, cpu)) + f"; worst relative difference "
-                  f"{worst:.3e} (tol {CLI_VALID_RTOL}); card {card_s:.3f} "
-                  f"s, CPU {cpu_s:.3f} s", flush=True)
-            require(worst <= CLI_VALID_RTOL, "cli --valid: card and CPU "
-                    "disagree")
-            out["valid_worst_rel"] = worst
-
-            # 5. --predict, and Trainer.predict on the same frames with the
-            # same weights (cuDNN held to its deterministic algorithms:
-            # its default transposed convs may sum in another order)
-            torch.backends.cudnn.deterministic = True
-            try:
-                launches["predict"], calls, _, _, _ = run_cli(
-                    [c10, "--dataset_cfg", ds_10, "--root", root, "-c",
-                     c_run, "--predict"], "--predict",
-                    cli_want(0, {}, 3, CASCADE_FWD))
-                all_calls += calls
-                trainer = Trainer(cli_module.build_settings(
-                    cli_module.parse_args([c10, "--dataset_cfg", ds_10]),
-                    load_config(c10), load_config(ds_10))[0], device="cuda")
-                trainer.load(c_ck, load_states=False)
-                flows_dir = os.path.join(root, "flows", os.path.basename(
-                    c_ck)[:-4])
-                test = sintel.list_data()["test"]["final"]
-                files = 0
-                for (img1, _), (flow, _, _) in zip(test, trainer.predict(
-                        [sintel.load(p) for p, _ in test],
-                        [sintel.load(p) for _, p in test], batch_size=b,
-                        resize=(448, 1024))):
-                    got = codecs.flo_load(os.path.join(
-                        flows_dir, "final", os.path.basename(
-                            os.path.dirname(img1)),
-                        os.path.basename(img1)[:-4] + ".flo"))
-                    require(np.array_equal(got, flow[..., ::-1]),
-                            f"cli --predict: {img1}'s .flo differs from "
-                            f"Trainer.predict")
+            trainer = Trainer(cli_module.build_settings(
+                cli_module.parse_args([c10, "--dataset_cfg", ds_10]),
+                load_config(c10), load_config(ds_10))[0], device="cuda")
+            trainer.load(c_ck, load_states=False)
+            flows_dir = os.path.join(root, "flows", os.path.basename(
+                c_ck)[:-4])
+            test = sintel.list_data()["test"]["final"]
+            files = 0
+            for (img1, _), (flow, _, _) in zip(test, trainer.predict(
+                    [sintel.load(p) for p, _ in test],
+                    [sintel.load(p) for _, p in test], batch_size=b,
+                    resize=(448, 1024))):
+                got = codecs.flo_load(os.path.join(
+                    flows_dir, "final", os.path.basename(
+                        os.path.dirname(img1)),
+                    os.path.basename(img1)[:-4] + ".flo"))
+                require(np.array_equal(got, flow[..., ::-1]),
+                        f"cli --predict: {img1}'s .flo differs from "
+                        f"Trainer.predict")
+                files += 1
+            testing = kitti.read_dataset_testing()
+            for ed in ("2012", "2015"):
+                flows = list(trainer.predict(
+                    testing[ed]["image_0"], testing[ed]["image_1"],
+                    batch_size=b, resize=(512, 1152)))
+                names = sorted(os.listdir(os.path.join(
+                    flows_dir, "kitti_" + ed)))
+                require(names == ["%06d_10.png" % k
+                                  for k in range(len(flows))] and flows,
+                        f"cli --predict: KITTI {ed} wrote {names}")
+                for k, (flow, _, _) in enumerate(flows):
+                    require(np.array_equal(codecs.png16_load(
+                        os.path.join(flows_dir, "kitti_" + ed,
+                                     names[k])),
+                        codecs.kitti_flow_encode(flow)),
+                        f"cli --predict: KITTI {ed} {names[k]} differs "
+                        f"from Trainer.predict")
                     files += 1
-                testing = kitti.read_dataset_testing()
-                for ed in ("2012", "2015"):
-                    flows = list(trainer.predict(
-                        testing[ed]["image_0"], testing[ed]["image_1"],
-                        batch_size=b, resize=(512, 1152)))
-                    names = sorted(os.listdir(os.path.join(
-                        flows_dir, "kitti_" + ed)))
-                    require(names == ["%06d_10.png" % k
-                                      for k in range(len(flows))] and flows,
-                            f"cli --predict: KITTI {ed} wrote {names}")
-                    for k, (flow, _, _) in enumerate(flows):
-                        require(np.array_equal(codecs.png16_load(
-                            os.path.join(flows_dir, "kitti_" + ed,
-                                         names[k])),
-                            codecs.kitti_flow_encode(flow)),
-                            f"cli --predict: KITTI {ed} {names[k]} differs "
-                            f"from Trainer.predict")
-                        files += 1
-                del trainer
-            finally:
-                torch.backends.cudnn.deterministic = False
-            require(files == CLI_SINTEL_TEST - 1 + 2 * (
-                (2 * CLI_KITTI_TEST - 1) // 2), f"cli --predict: {files} "
-                "files")
-            print(f"cli --predict: {files} files (Sintel .flo, KITTI PNG16) "
-                  f"equal to Trainer.predict on the same frames", flush=True)
+            del trainer
+        finally:
+            torch.backends.cudnn.deterministic = False
+        require(files == CLI_SINTEL_TEST - 1 + 2 * (
+            (2 * CLI_KITTI_TEST - 1) // 2), f"cli --predict: {files} "
+            "files")
+        print(f"cli --predict: {files} files (Sintel .flo, KITTI PNG16) "
+              f"equal to Trainer.predict on the same frames", flush=True)
     check_uncovered(all_calls, gen, "cli")
+    return launches, out, env
+
+
+def gluon_params(network: str, rng) -> dict:
+    """A Gluon checkpoint of ``network`` at the published widths: the keys
+    Gluon 1.5's ``save_parameters`` writes (``.0.`` child indices; bare
+    ``pred_*``, ``deform*`` and ``dc_conv7``; the cascade's head under
+    ``MaskFlownet_S.``), MXNet's layouts (a deconv's (Cin, Cout, kh, kw)),
+    weights at He scale and biases at 0.05 so that activations stay finite
+    through the network (as ``tests/test_parity_oracle.py`` draws them)."""
+    out = {}
+    for key, shape in sorted(param_shapes(model=network).items()):
+        scope, name = "", key
+        if key.startswith(HEAD_SCOPE + "/"):
+            scope, name = HEAD_SCOPE + ".", key[len(HEAD_SCOPE) + 1:]
+        block, leaf = name.split("/")
+        bare = block.startswith(("pred_", "deform")) or block == "dc_conv7"
+        gluon_key = (scope + block + ("." if bare else ".0.")
+                     + ("weight" if leaf == "w" else "bias"))
+        if leaf == "b":
+            arr = rng.randn(*shape) * 0.05
+        else:
+            cout, cin, kh, kw = shape               # the port's OIHW
+            if block.startswith("upfeat"):
+                shape = (cin, cout, kh, kw)
+            arr = rng.randn(*shape) / np.sqrt(kh * kw * cin)
+        out[gluon_key] = arr.astype(np.float32)
+    return out
+
+
+def run_tool(fn, what: str, want: dict):
+    """``fn()`` with the launch counts zeroed just before and read just
+    after, every correlation and deform launch recorded; requires
+    ``want``'s counts. Returns (what ``fn`` returned, the counts, the
+    recorded launches, seconds)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with record_launches() as calls:
+        result = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    require(launches == want, f"tools {what}: launched {launches}, not "
+            f"{want}")
+    print(f"tools {what}: {seconds:.3f} s; launches {launches}", flush=True)
+    return result, launches, calls, seconds
+
+
+def do_batch_ms(predictor, img1, img2) -> float:
+    """Median wall time of TOOLS_REPS ``do_batch`` calls, each ended by a
+    synchronize, after one warm-up call."""
+    predictor.do_batch(img1, img2)
+    times = []
+    for _ in range(TOOLS_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predictor.do_batch(img1, img2)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def frames_nchw(frames) -> torch.Tensor:
+    """(H, W, 3) uint8 frames -> (B, 3, H, W) f32 in [0, 1] on the card."""
+    return torch.from_numpy(np.stack(frames)).permute(0, 3, 1, 2).to(
+        "cuda").float().div(255).contiguous()
+
+
+def run_infer(argv, what: str, want: dict):
+    """``infer.main(argv)`` through ``run_tool``; returns (the trainer its
+    ``load_trainer`` built, seconds in ``load_trainer``, seconds in
+    ``main``, the recorded launches)."""
+    made = []
+    real = infer_module.load_trainer
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        trainer = real(*args, **kwargs)
+        made.append((trainer, time.perf_counter() - t0))
+        return trainer
+
+    with mock.patch.object(infer_module, "load_trainer", timed):
+        rc, _, calls, seconds = run_tool(lambda: infer_module.main(argv),
+                                         what, want)
+    require(rc == 0 and len(made) == 1, f"tools {what}: main returned {rc}")
+    return made[0][0], made[0][1], seconds, calls
+
+
+def drive_tools(smi: str, gen, tmp: str, env: dict):
+    """The published-checkpoint tools at the published widths: Gluon
+    ``.params`` files of both networks through ``tools.import_mxnet``,
+    ``tools.infer`` on a Sintel pair (each network) and on a directory of
+    frames, ``tools.parity_eval`` on the cli phase's Sintel and KITTI trees
+    under ``tmp`` (``env``). Returns (each tool run's launches, the phase's
+    numbers)."""
+    root = os.path.join(tmp, "tools")
+    os.makedirs(root)
+    rng = np.random.RandomState(TOOLS_SEED)
+    out = {"import": {}, "bgr_rel": {}, "infer": {}}
+    launches, all_calls, files = {}, [], {}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    per_fwd = {"MaskFlownet_S": S_FWD, "MaskFlownet": CASCADE_FWD}
+
+    # 1-2. the synthetic checkpoints, imported; the bgr import against the
+    # rgb one
+    for network in ("MaskFlownet_S", "MaskFlownet"):
+        src = os.path.join(root, f"synthetic_{network}.params")
+        npz = os.path.join(root, f"synthetic_{network}.npz")
+        imx_module.write_mxnet_params(src, gluon_params(network, rng))
+        t0 = time.perf_counter()
+        imx_module.read_mxnet_params(src)
+        read_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params = imx_module.import_checkpoint(src, network)
+        import_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        imx_module.save_as_npz(params, npz)
+        write_s = time.perf_counter() - t0
+        os.remove(npz)
+        t0 = time.perf_counter()
+        rc = imx_module.main([src, npz, "--network", network])
+        main_s = time.perf_counter() - t0
+        back = interop.read_npz(npz, param_shapes(model=network))
+        require(rc == 0 and back["step"] == 0 and back["mu"] is None
+                and set(back["params"]) == set(params) and all(
+                    torch.equal(back["params"][k], v)
+                    for k, v in params.items()),
+                f"tools import {network}: the .npz does not read back as "
+                f"the in-memory import")
+        nums = {"tensors": len(params),
+                "parameters": sum(v.numel() for v in params.values()),
+                "params_bytes": os.path.getsize(src),
+                "npz_bytes": os.path.getsize(npz), "read_s": read_s,
+                "convert_s": import_s - read_s, "write_s": write_s,
+                "main_s": main_s}
+        out["import"][network] = nums
+        print(f"tools import {network}: {nums['tensors']} tensors, "
+              f"{nums['parameters']} parameters; the .params file "
+              f"({nums['params_bytes']} bytes) read in {read_s:.3f} s, "
+              f"converted and checked in {import_s - read_s:.3f} s, the "
+              f".npz ({nums['npz_bytes']} bytes) written in {write_s:.3f} "
+              f"s; import_mxnet.main {main_s:.3f} s; the .npz read back "
+              f"bitwise the in-memory import ({smi})", flush=True)
+
+        bgr = imx_module.import_checkpoint(src, network,
+                                           input_channel_order="bgr")
+        h, w = TOOLS_SMALL_HW
+        x1 = torch.rand((1, 3, h, w), generator=gen, device="cuda")
+        x2 = torch.rand((1, 3, h, w), generator=gen, device="cuda")
+        (rgb_out, bgr_out), _, calls, _ = run_tool(
+            lambda: (Predictor(params, device="cuda", dtype=torch.float32,
+                               model=network).do_batch(x1, x2),
+                     Predictor(bgr, device="cuda", dtype=torch.float32,
+                               model=network).do_batch(x1.flip(1),
+                                                       x2.flip(1))),
+            f"{network} bgr import vs rgb import, f32 {h}x{w}",
+            cli_want(0, {}, 2, per_fwd[network]))
+        all_calls += calls
+        check_outputs(rgb_out, 1, (h, w), f"tools {network} rgb import")
+        errs = [(a - b).abs().max().item() / max(1.0, a.abs().max().item())
+                for a, b in zip(rgb_out, (bgr_out[0], bgr_out[1],
+                                          bgr_out[2].flip(1)))]
+        out["bgr_rel"][network] = max(errs)
+        print(f"tools {network}: the bgr import on channel-reversed images "
+              f"vs the rgb import, f32 at {h}x{w}: flow, occ, warped "
+              f"relative {errs[0]:.3e}, {errs[1]:.3e}, {errs[2]:.3e} (tol "
+              f"{BGR_REL}); |flow| max {rgb_out[0].abs().max().item():.3f} "
+              f"px", flush=True)
+        require(max(errs) <= BGR_REL, f"tools {network}: the bgr import "
+                f"disagrees with the rgb import")
+        files[network] = (src, npz)
+        del params, bgr, back
+
+    # 3. infer: -i with each checkpoint, --frames, --video without OpenCV
+    sintel_root = env["MFN_SINTEL_ROOT"]
+    pair = [os.path.join(sintel_root, "training", "clean", "alley_1",
+                         f"frame_{i:04d}.png") for i in (1, 2)]
+    img1, img2 = (codecs.image_load(p) for p in pair)
+    frames_dir = os.path.join(root, "frames")
+    os.makedirs(frames_dir)
+    names = [f"frame_{k:02d}.png" for k in range(TOOLS_FRAMES)]
+    for name in names:
+        codecs.png8_save(rng.randint(0, 256, sintel.SHAPE + (3,),
+                                     dtype=np.uint8),
+                         os.path.join(frames_dir, name))
+    frames = [codecs.image_load(os.path.join(frames_dir, n)) for n in names]
+    torch.backends.cudnn.deterministic = True
+    try:
+        for network, config in (("MaskFlownet_S", "MaskFlownet_S.yaml"),
+                                ("MaskFlownet", "MaskFlownet.yaml")):
+            key = f"i_{network}"
+            out_dir = os.path.join(root, key)
+            trainer, load_s, seconds, calls = run_infer(
+                [config, "-c", files[network][1], "-i", *pair, "-o",
+                 out_dir], f"infer -i {network} (bf16, 436x1024)",
+                per_fwd[network])
+            launches[key] = per_fwd[network]
+            all_calls += calls
+            flow, _, warped = next(trainer.predict([img1], [img2],
+                                                   batch_size=1))
+            require(np.array_equal(codecs.flo_load(os.path.join(
+                out_dir, "flow.flo")), flow[..., ::-1]),
+                f"tools infer -i {network}: flow.flo is not Trainer.predict's")
+            require(np.array_equal(codecs.image_load(os.path.join(
+                out_dir, "flow.png")), flow_to_color(flow)) and
+                np.array_equal(codecs.image_load(os.path.join(
+                    out_dir, "warped.png")), (np.clip(warped, 0, 1) * 255)
+                    .astype(np.uint8)),
+                f"tools infer -i {network}: a PNG differs")
+            ms = do_batch_ms(trainer.predictor(), frames_nchw([img1]),
+                             frames_nchw([img2]))
+            out["infer"][key] = {
+                "seconds": seconds, "load_trainer_s": load_s, "frames": 1,
+                "ms_per_frame": (seconds - load_s) * 1e3,
+                "do_batch_ms_per_frame": ms}
+            del trainer
+
+        forwards = math.ceil((TOOLS_FRAMES - 1) / TOOLS_BATCH)
+        out_dir = os.path.join(root, "frames_out")
+        trainer, load_s, seconds, calls = run_infer(
+            ["MaskFlownet_S.yaml", "-c", files["MaskFlownet_S"][1],
+             "--frames", frames_dir, "--batch", str(TOOLS_BATCH), "-o",
+             out_dir], f"infer --frames MaskFlownet_S ({TOOLS_FRAMES} "
+            f"frames, bf16, 436x1024)", cli_want(0, {}, forwards, S_FWD))
+        launches["frames"] = cli_want(0, {}, forwards, S_FWD)
+        all_calls += calls
+        flows = [f for f, _, _ in trainer.predict(
+            frames[:-1], frames[1:], batch_size=TOOLS_BATCH)]
+        require(sorted(os.listdir(out_dir)) == [n[:-4] + "_flow.png"
+                                                for n in names[:-1]]
+                and all(np.array_equal(codecs.image_load(os.path.join(
+                    out_dir, n[:-4] + "_flow.png")), flow_to_color(f))
+                    for n, f in zip(names, flows)),
+                "tools infer --frames: the PNGs are not Trainer.predict's")
+        ms = do_batch_ms(trainer.predictor(), frames_nchw(frames[:-1]),
+                         frames_nchw(frames[1:]))
+        out["infer"]["frames"] = {
+            "seconds": seconds, "load_trainer_s": load_s,
+            "frames": TOOLS_FRAMES - 1,
+            "ms_per_frame": (seconds - load_s) * 1e3 / (TOOLS_FRAMES - 1),
+            "do_batch_ms_per_frame": ms / (TOOLS_FRAMES - 1)}
+        del trainer
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for key, nums in out["infer"].items():
+        print(f"tools infer {key}: main {nums['seconds']:.3f} s, of it "
+              f"load_trainer {nums['load_trainer_s']:.3f} s; the rest "
+              f"(read, predict, write) {nums['ms_per_frame']:.3f} ms/frame "
+              f"over {nums['frames']} frames; Predictor.do_batch "
+              f"{nums['do_batch_ms_per_frame']:.3f} ms/frame at the same "
+              f"model, batch and shape ({smi})", flush=True)
+    with mock.patch.dict(sys.modules, {"cv2": None}):
+        try:
+            run_tool(lambda: infer_module.main(
+                ["MaskFlownet_S.yaml", "-c", files["MaskFlownet_S"][1],
+                 "--video", "in.mp4", "out.mp4", "-o", root]),
+                "infer --video without OpenCV", {})
+            require(False, "tools infer --video ran without OpenCV")
+        except ImportError as e:
+            require("--frames" in str(e), f"tools infer --video: {e}")
+            print(f"tools infer --video without OpenCV: ImportError, no "
+                  f"launch: {e}", flush=True)
+
+    # 4. parity_eval on the cli phase's trees
+    src = files["MaskFlownet_S"][0]
+    trees = {"sintel_root": sintel_root,
+             "sintel_split": env["MFN_SINTEL_SPLIT"],
+             "kitti_root": env["MFN_KITTI_ROOT"]}
+    absent = os.path.join(root, "absent")
+    pairs, kitti_pairs = CLI_SINTEL_FRAMES - 1, CLI_KITTI_TRAIN - 1
+    row_frames = {"sintel.trainval": 2 * 2 * pairs, "sintel.val": 2 * pairs,
+                  "kitti.2012": kitti_pairs, "kitti.2015": kitti_pairs}
+    forwards = (2 * math.ceil(2 * pairs / 4) + 2 * math.ceil(pairs / 4)
+                + 2 * math.ceil(kitti_pairs / 4))
+    row_s = {}
+    real_sintel = parity_module.eval_sintel
+    real_kitti = parity_module.eval_kitti
+
+    def timed_sintel(trainer, division, *args, **kwargs):
+        t0 = time.perf_counter()
+        got = real_sintel(trainer, division, *args, **kwargs)
+        row_s["sintel.val" if division == "training2"
+              else "sintel.trainval"] = time.perf_counter() - t0
+        return got
+
+    def timed_kitti(trainer, edition, *args, **kwargs):
+        t0 = time.perf_counter()
+        got = real_kitti(trainer, edition, *args, **kwargs)
+        row_s[f"kitti.{edition}"] = time.perf_counter() - t0
+        return got
+
+    sintel.load.cache_clear()           # the rows read their frames
+    with mock.patch.object(parity_module, "eval_sintel", timed_sintel), \
+            mock.patch.object(parity_module, "eval_kitti", timed_kitti):
+        summary, _, calls, seconds = run_tool(
+            lambda: parity_module.run(src, batch_size=4, **trees),
+            "parity_eval MaskFlownet_S .params (f32, Sintel 436x1024, "
+            "KITTI 1224x370)", cli_want(0, {}, forwards, S_FWD))
+    launches["parity_eval"] = cli_want(0, {}, forwards, S_FWD)
+    all_calls += calls
+    require(summary["status"] == "computed" and not summary["skipped"]
+            and len(summary["results"]) == 8 and all(
+                math.isfinite(v) for v in summary["results"].values()),
+            f"tools parity_eval: {summary}")
+    out["parity_eval"] = {
+        "seconds": seconds, "results": summary["results"],
+        "ms_per_frame": {r: row_s[r] * 1e3 / n
+                         for r, n in row_frames.items()},
+        "frames": row_frames}
+    print("tools parity_eval rows, f32, ms per frame (the frames read, "
+          "resized and evaluated): " + ", ".join(
+              f"{r} {v:.3f} ({row_frames[r]} frames)" for r, v in
+              out["parity_eval"]["ms_per_frame"].items()) + f" ({smi})",
+          flush=True)
+
+    summary, _, calls, _ = run_tool(
+        lambda: parity_module.run(
+            src, batch_size=1, samples=1, sintel_root=sintel_root,
+            sintel_split=trees["sintel_split"], kitti_root=absent,
+            rows=("sintel.val", "kitti.2012", "kitti.2015")),
+        "parity_eval with the KITTI root absent", cli_want(0, {}, 2, S_FWD))
+    launches["parity_eval_absent"] = cli_want(0, {}, 2, S_FWD)
+    all_calls += calls
+    require(summary["skipped"] == ["kitti.2012", "kitti.2015"] and
+            summary["status"] == "computed" and set(summary["results"]) ==
+            {"sintel.val.clean", "sintel.val.final"},
+            f"tools parity_eval, KITTI absent: {summary}")
+    rc, _, _, _ = run_tool(lambda: parity_module.main(
+        [src, "--expect", "none", "--sintel_root", absent, "--sintel_split",
+         absent + ".txt", "--kitti_root", absent]),
+        "parity_eval with nothing mounted", {})
+    require(rc == 2, f"tools parity_eval with nothing mounted returned {rc}")
+    print("tools parity_eval: an absent root SKIPPED, nothing mounted "
+          "'no-data' and exit code 2", flush=True)
+
+    # card vs CPU, f32, the deform kernels' form on both (their plain pair
+    # on the CPU)
+    cut = dict(batch_size=1, samples=1, kitti_resize=PARITY_KITTI_CUT,
+               **trees)
+    card, _, calls, card_s = run_tool(
+        lambda: parity_module.run(src, **cut),
+        "parity_eval f32 one pair a row, the card", cli_want(0, {}, 6, S_FWD))
+    launches["parity_eval_cut"] = cli_want(0, {}, 6, S_FWD)
+    all_calls += calls
+    t0 = time.perf_counter()
+    with mock.patch.object(deform_module, "resolve_method",
+                           lambda method, device: "kernel"
+                           if method == "auto" else method):
+        cpu = parity_module.run(src, device="cpu", **cut)
+    cpu_s = time.perf_counter() - t0
+    keys = sorted(card["results"])
+    require(keys == sorted(cpu["results"]) and len(keys) == 8,
+            f"tools parity_eval card vs CPU: {keys}, {sorted(cpu['results'])}")
+    worst = max(abs(card["results"][k] - cpu["results"][k])
+                / abs(cpu["results"][k]) for k in keys)
+    out["parity_eval"].update(card_vs_cpu_worst_rel=worst, card_s=card_s,
+                              cpu_s=cpu_s)
+    print("tools parity_eval f32, card vs CPU (one pair a row, KITTI at "
+          f"{PARITY_KITTI_CUT[0]}x{PARITY_KITTI_CUT[1]}): " + ", ".join(
+              f"{k} {card['results'][k]} vs {cpu['results'][k]}"
+              for k in keys) + f"; worst relative difference {worst:.3e} "
+          f"(tol {PARITY_RTOL}); card {card_s:.3f} s, CPU {cpu_s:.3f} s",
+          flush=True)
+    require(worst <= PARITY_RTOL, "tools parity_eval: card and CPU disagree")
+    shutil.rmtree(root)
+    check_uncovered(all_calls, gen, "tools")
     return launches, out
 
 
@@ -2656,8 +3058,11 @@ def main() -> int:
     with phase("input"):
         input_launches, input_numbers = drive_input(smi)
 
-    with phase("cli"):
-        cli_launches, cli_numbers = drive_cli(smi, gen)
+    with tempfile.TemporaryDirectory() as trees:
+        with phase("cli"):
+            cli_launches, cli_numbers, env = drive_cli(smi, gen, trees)
+        with phase("tools"):
+            tools_launches, tools_numbers = drive_tools(smi, gen, trees, env)
 
     def entry(name, source, replaces, timing, err, launched, shapes,
               **extra):
@@ -2690,6 +3095,9 @@ def main() -> int:
             "launches_cli_s": cli_launches["s"].get(name, 0),
             "launches_cli_s_host": cli_launches["s_host"].get(name, 0),
             "launches_cli_cascade": cli_launches["cascade"].get(name, 0),
+            "tools": tools_numbers,
+            "launches_tools": sum(v.get(name, 0)
+                                  for v in tools_launches.values()),
             **extra}
 
     def deform_timing(key):

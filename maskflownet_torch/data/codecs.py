@@ -12,7 +12,8 @@ same files.
 
   * 8-bit PNG images (``image_load``): the JAX package decodes them
     through PIL; this decoder is zlib and numpy (the same arrays for
-    every type it accepts, and an error for the rest).
+    every type it accepts, and an error for the rest). ``png8_save``
+    writes gray and RGB ones (the JAX tools write them through PIL).
 """
 
 from __future__ import annotations
@@ -209,14 +210,15 @@ def png16_load(path: str) -> np.ndarray:
     return img.reshape(h, w, channels)
 
 
-def png16_save(arr: np.ndarray, path: str) -> None:
-    """Save (H, W, 3) uint16 (or (H, W, 1)/(H, W) gray) as 16-bit PNG."""
+def _png_write(path: str, arr: np.ndarray, dtype: str, depth: int) -> None:
+    """(H, W) gray or (H, W, 1 | 3) gray/RGB as a PNG of ``depth`` bits: every
+    row filter 0 (None), one zlib IDAT chunk."""
     if arr.ndim == 2:
         arr = arr[..., None]
     h, w, c = arr.shape
     ctype = {1: 0, 3: 2}[c]
-    raw = b"".join(b"\x00" + np.ascontiguousarray(arr[y], dtype=">u2").tobytes()
-                   for y in range(h))
+    rows = np.ascontiguousarray(arr, dtype=dtype).reshape(h, -1).view(np.uint8)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
 
     def chunk(typ: bytes, payload: bytes) -> bytes:
         return (struct.pack(">I", len(payload)) + typ + payload
@@ -224,9 +226,23 @@ def png16_save(arr: np.ndarray, path: str) -> None:
 
     with open(path, "wb") as fp:
         fp.write(_PNG_SIG)
-        fp.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, ctype, 0, 0, 0)))
-        fp.write(chunk(b"IDAT", zlib.compress(raw, 6)))
+        fp.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype,
+                                            0, 0, 0)))
+        fp.write(chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
         fp.write(chunk(b"IEND", b""))
+
+
+def png16_save(arr: np.ndarray, path: str) -> None:
+    """Save (H, W, 3) uint16 (or (H, W, 1)/(H, W) gray) as 16-bit PNG."""
+    _png_write(path, arr, ">u2", 16)
+
+
+def png8_save(arr: np.ndarray, path: str) -> None:
+    """Save (H, W) gray or (H, W, 3) RGB uint8 as an 8-bit PNG: what the JAX
+    tools write through PIL, which the card's machine does not have."""
+    if arr.dtype != np.uint8:
+        raise ValueError(f"png8_save: expected uint8, got {arr.dtype}")
+    _png_write(path, arr, np.uint8, 8)
 
 
 def kitti_flow_decode(flow_occ: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

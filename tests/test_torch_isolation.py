@@ -30,10 +30,29 @@ def _imported(path: Path) -> set[str]:
     return names
 
 
+# the one optional dependency: ``infer --video`` imports OpenCV inside the
+# function that needs it, and raises ImportError naming ``--frames``
+# without it; nothing else may reach it
+LAZY = {"maskflownet_torch/tools/infer.py": {"cv2"}}
+
+
+def _imported_at_module_level(path: Path) -> set[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = set()
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module.split(".")[0])
+    return names
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_banned_import_in_source(path):
-    assert not _imported(path) & set(BANNED)
+    lazy = LAZY.get(str(path.relative_to(ROOT)), set())
+    assert not _imported(path) & (set(BANNED) - lazy)
+    assert not _imported_at_module_level(path) & lazy
 
 
 def test_importing_the_port_loads_no_banned_module():
@@ -55,7 +74,10 @@ def test_importing_the_port_loads_no_banned_module():
             "maskflownet_torch.data.sintel, maskflownet_torch.data.kitti, "
             "maskflownet_torch.data.hd1k, maskflownet_torch.data.things3d, "
             "maskflownet_torch.augment.host_geometry, "
-            "maskflownet_torch.tools.submission\n"
+            "maskflownet_torch.tools.submission, "
+            "maskflownet_torch.tools.import_mxnet, "
+            "maskflownet_torch.tools.infer, "
+            "maskflownet_torch.tools.parity_eval\n"
             f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -64,12 +86,32 @@ def test_importing_the_port_loads_no_banned_module():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+def test_the_tools_package_does_not_load_its_command_line_modules():
+    """``python -m maskflownet_torch.tools.infer`` (and the other tools)
+    would warn if the package had already imported the module."""
+    tools = ("import_mxnet", "infer", "parity_eval")
+    code = ("import sys, maskflownet_torch.tools\n"
+            f"print(sorted(m for m in {tools!r} if "
+            "'maskflownet_torch.tools.' + m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == "[]", out.stdout
+    out = subprocess.run([sys.executable, "-W", "error::RuntimeWarning", "-m",
+                          "maskflownet_torch.tools.infer", "--help"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0 and "--frames" in out.stdout, out.stderr
+
+
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
     from maskflownet_torch import get_device
     from maskflownet_torch.cli.main import main as cli_main
     from maskflownet_torch.data import DeviceBatchCache
     from maskflownet_torch.inference import Predictor
     from maskflownet_torch.parallel import DevicePrefetcher
+    from maskflownet_torch.tools.infer import main as infer_main
+    from maskflownet_torch.tools.parity_eval import main as parity_main
     from maskflownet_torch.training import Trainer
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -84,5 +126,12 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
         DevicePrefetcher(lambda: None)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli_main(["MaskFlownet_S.yaml", "--root", str(tmp_path)])
+    out = str(tmp_path / "out")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        infer_main(["MaskFlownet_S.yaml", "-c", str(tmp_path / "ck.npz"),
+                    "-i", "a.png", "b.png", "-o", out])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        parity_main([str(tmp_path / "ck.npz"), "--sintel_root", out,
+                     "--kitti_root", out])
     assert not os.listdir(tmp_path)
     assert get_device("cpu") == torch.device("cpu")
