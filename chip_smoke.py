@@ -144,7 +144,32 @@ Phases, each timed on its own line:
      the card against the CPU in f32 (one pair a row, KITTI read at
      256x128) within 1e-4 relative. Exact launch counts a tool run; the
      import's seconds, ``infer``'s ms/frame beside ``do_batch``'s and
-     ``parity_eval``'s ms per frame per row.
+     ``parity_eval``'s ms per frame per row;
+ 12. parallel: data parallelism over processes and the H-sharded forward,
+     each rank a process of its own (this script with
+     ``--parallel-worker``; a rank that fails fails the phase). The
+     machine has one card, so two ranks share it over gloo, which reduces
+     CUDA tensors through the host: its times are gloo-on-one-card times,
+     not NCCL's. Two gloo ranks: the f32 augmented chairs S step (384x512
+     -> 320x448) as 2 ranks x 1 sample against one process x 2 with the
+     same draws (loss and all-reduced gradients as they run and on the
+     one process's branches, the parameters after 3 steps, the replicas'
+     gradients and parameters bitwise equal), the S gradients' all-reduce
+     time, one data-parallel step of the frozen-head cascade (bf16,
+     320x768, 1 a rank; the head bitwise unchanged, exact launches), and
+     the row-sharded forwards of both models at 896x2048, batch 1, f32
+     and bf16, against the whole forward (launch counts, ms/frame and
+     peak memory a rank beside the whole forward's). Then ``python -m
+     maskflownet_torch.cli.main`` as two gloo processes on phase 10's
+     chairs tree (the stock chairs config, global batch 8, 4 a rank, a
+     device cache, 10 steps): rank 0 alone writes the log and the
+     checkpoint, which reads back; exact launches a rank; ms/step a rank
+     beside phase 10's one-process stage. Then the bf16 augmented S step
+     in a one-rank NCCL group, in turns with the same step without a
+     group: no synchronisation with the host, ms/step of both, the
+     all-reduce's time; NCCL across cards only where the machine has two
+     (else "not run"). Every launch shape the ranks recorded is held
+     against the plain versions as in phase 10.
 The card-vs-CPU comparisons run the deform kernels' form on both sides
 (``deform="kernel"``: its plain pair on the CPU), so that both take the
 same sample coordinates.
@@ -185,6 +210,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import maskflownet_torch.cli.main as cli_module
 import maskflownet_torch.models.maskflownet as model_module
@@ -200,9 +226,10 @@ from maskflownet_torch.config import CONFIG_DIR, load_config, presets
 from maskflownet_torch.data import (Dataset, DeviceBatchCache, TrainLoader,
                                     chairs, codecs, kitti, sintel, synthetic,
                                     with_mask)
-from maskflownet_torch.inference import Predictor
-from maskflownet_torch.models import (HEAD_SCOPE, ModelConfig, init_params,
-                                      param_shapes)
+from maskflownet_torch.inference import Predictor, centralize
+from maskflownet_torch.models import (HEAD_SCOPE, ModelConfig, build_model,
+                                      init_params, param_shapes)
+from maskflownet_torch.nn import apply_ctx
 from maskflownet_torch.ops import _build
 from maskflownet_torch.ops.affine import affine_sample, affine_sample_plain
 from maskflownet_torch.ops.correlation import (corr_bwd_f1, corr_bwd_f2,
@@ -214,7 +241,11 @@ from maskflownet_torch.ops.deform import (_warpconv, deform_bwd,
                                           deform_bwd_plain, deform_fwd,
                                           deform_fwd_plain, weight_to_w9)
 from maskflownet_torch.ops.warp import base_grid, normalized_to_pixels
-from maskflownet_torch.parallel import DevicePrefetcher
+from maskflownet_torch.ops.resample import upsample
+from maskflownet_torch.parallel import (DevicePrefetcher, all_reduce_mean,
+                                        batch_sharding, make_mesh,
+                                        make_spatial_forward,
+                                        make_spatial_mesh)
 from maskflownet_torch.tools import grad_parity
 from maskflownet_torch.tools.flow_vis import flow_to_color
 from maskflownet_torch.training import (TrainSettings, Trainer,
@@ -2959,6 +2990,667 @@ def drive_tools(smi: str, gen, tmp: str, env: dict):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 12, parallel: data parallelism over processes and the H-sharded
+# forward, each rank a process of its own (``--parallel-worker``)
+# ---------------------------------------------------------------------------
+
+# the command that starts a rank: this script with ``--parallel-worker``
+WORKER_CMD = [sys.executable, os.path.abspath(__file__)]
+PAR_WORLD, PAR_TIMEOUT_S = 2, 300
+# the f32 equivalence: PAR_WORLD ranks of one sample against one process of
+# PAR_DP_BATCH, the augmented chairs step (384x512 -> 320x448), the first
+# step's loss, epe and gradients, then the parameters after PAR_DP_STEPS
+# steps, each parameter tensor's difference within PAR_UPDATE_RTOL of the
+# norm of its update (Adam divides each element by its gradient's scale,
+# so an element whose gradient is near zero takes the gradient's rounding
+# whole)
+PAR_DP_BATCH, PAR_DP_STEPS, PAR_UPDATE_RTOL = 2, 3, 5e-2
+# the CLI as PAR_WORLD processes: the stock chairs config (global batch 8)
+# for PAR_CLI_STEPS steps through a device cache of CLI_SLOTS slots
+PAR_CLI_STEPS = 10
+# one data-parallel step of the frozen-head cascade: one sample a rank at
+# the cascade step's 320x768, bf16
+# the H-sharded forward: Sintel at twice its working size, batch 1, over
+# PAR_WORLD spatial ranks on the card, SPATIAL_REPS timed forwards; f32
+# within SPATIAL_F32_TOL_PX of the whole forward; bf16 rounds at other
+# places in the two (the halo tiles' sums, the all-reduced mean colour),
+# about 2^-8 relative a layer over some 60 layers as a random walk
+# (~3e-2): the mean |diff| within SPATIAL_BF16_REL of the mean |flow|
+SPATIAL_HW, SPATIAL_REPS = (896, 2048), 5
+SPATIAL_F32_TOL_PX, SPATIAL_BF16_REL = 1e-3, 5e-2
+# timed steps of the one-rank NCCL step and of the same step without a
+# group, in turns
+NCCL_STEPS = 10
+DTYPES = {str(d): d for d in (torch.float32, torch.bfloat16, torch.float16)}
+
+
+def par_settings(dtype: str) -> TrainSettings:
+    """The augmented chairs S step (384x512 sources, 320x448 crops)."""
+    return TrainSettings(compute_dtype=dtype,
+                         color=presets.color_aug_config("chairs"),
+                         geo=presets.geometry_aug_config(
+                             "chairs", TRAIN_HW, AUG_SRC_HW))
+
+
+def keys_out(calls) -> list:
+    """Recorded launch keys as JSON."""
+    return [[k[0], list(k[1]), k[2], str(k[3])] + [list(x) for x in k[4:]]
+            for k in calls]
+
+
+def keys_in(rows) -> list:
+    return [(r[0], tuple(r[1]), r[2], DTYPES[r[3]])
+            + tuple(tuple(x) for x in r[4:]) for r in rows]
+
+
+def tensor_digest(tensors) -> str:
+    """A digest of the bytes of ``tensors`` (a dict), for replicas."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        t = tensors[k].detach().float().cpu().contiguous()
+        h.update(t.numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_branches(values, rank: int, world: int, b: int):
+    """Rank ``rank``'s part of a global batch of ``b``'s branch values
+    (``grad_parity.branches``): a pair pass's value (the pyramids', 2b
+    rows: image 1's batch, then image 2's) keeps the rank's rows of each
+    half, the others its rows."""
+    per = b // world
+    mine = list(range(rank * per, (rank + 1) * per))
+
+    def part(t):
+        if t.shape[0] == 2 * b:
+            return t[mine + [b + i for i in mine]]
+        require(t.shape[0] == b, f"branch value of batch {t.shape[0]}")
+        return t[mine]
+
+    return {"coords": [tuple(part(a) for a in p) for p in values["coords"]],
+            "leaky": [part(t) for t in values["leaky"]],
+            "corr": [part(t) for t in values["corr"]]}
+
+
+def merge_branches(parts):
+    """The global batch's branch values from each rank's, in rank order
+    (the inverse of :func:`rank_branches`)."""
+    per = parts[0]["corr"][0].shape[0]
+
+    def merge(ts):
+        if ts[0].shape[0] == 2 * per:
+            return torch.cat([t[:per] for t in ts] + [t[per:] for t in ts])
+        return torch.cat(ts)
+
+    return {"coords": [tuple(merge([p["coords"][i][j] for p in parts])
+                             for j in range(2))
+                       for i in range(len(parts[0]["coords"]))],
+            "leaky": [merge([p["leaky"][i] for p in parts])
+                      for i in range(len(parts[0]["leaky"]))],
+            "corr": [merge([p["corr"][i] for p in parts])
+                     for i in range(len(parts[0]["corr"]))]}
+
+
+def dp_step(trainer, batch, replay, draws):
+    """``step_grads`` of a data-parallel rank: the step's loss and
+    gradients after the all-reduce (the global batch's), and the rank's
+    branch values."""
+    seen, patches = grad_parity.branches("cuda", replay)
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        loss, epe = trainer.loss(*batch, draws=draws)
+        loss.backward()
+    loss, _ = trainer.reduce_gradients(loss.detach(), epe)
+    grads = {k: p.grad.detach().cpu() for k, p in trainer.params.items()
+             if p.grad is not None}
+    trainer.opt.zero_grad(set_to_none=True)
+    return loss.item(), grads, seen
+
+
+def whole_forward(model, params, im1, im2, dtype):
+    """The forward ``make_spatial_forward`` shards, whole: centralize, the
+    model (the deformable convs in their ``warpconv`` form, as the
+    sharded forward takes them), the 4x upsampled flow and first visual."""
+    a, b = centralize(im1, im2)
+    preds, occs, _ = build_model(model)(apply_ctx(params, dtype), a, b,
+                                        WARP_CFG)
+    return upsample(preds[-1], 4), upsample(occs[0].float(), 4)
+
+
+def spatial_images():
+    """The sharded forward's pair: seeded noise at SPATIAL_HW in [0, 1]."""
+    g = torch.Generator().manual_seed(12)
+    return [torch.rand((1, 3) + SPATIAL_HW, generator=g) for _ in range(2)]
+
+
+def timed_forwards(fn, reps: int):
+    """ms a call of ``fn`` over ``reps`` calls after one warm-up, ended by
+    synchronize, with the peak memory above what was allocated before."""
+    fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    return out, ms, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def worker_gloo(rank: int, world: int, out: str) -> dict:
+    """A gloo rank on the card: the f32 equivalence (as it runs, on the
+    one-process step's branches, PAR_DP_STEPS steps), the frozen-head
+    cascade step, the S gradients' all-reduce time, the H-sharded
+    forwards. Tensors for the parent go to ``out``/gloo<r>.pt."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh("cuda")
+    res, tensors = {"device": str(mesh.device)}, {}
+    inp = torch.load(os.path.join(out, "dp_in.pt"))
+    local = batch_sharding(mesh, PAR_DP_BATCH)
+    batch = [t[local].cuda() for t in inp["batch"]]
+    params = init_params(0)
+    settings = par_settings("float32")
+    with record_launches() as calls:
+        asrun = dp_step(Trainer(settings, params=params, mesh=mesh), batch,
+                        None, inp["draws"][0])
+        replay = dp_step(Trainer(settings, params=params, mesh=mesh), batch,
+                         rank_branches(inp["replay"], mesh.rank, world,
+                                       PAR_DP_BATCH), inp["draws"][0])
+        trainer = Trainer(settings, params=params, mesh=mesh)
+        metrics = [trainer.train_batch(*batch, lr=TRAIN_LR, sync=True,
+                                       draws=d) for d in inp["draws"]]
+    res["dp"] = {"losses": [asrun[0], replay[0]], "metrics": metrics,
+                 "grad_digest": tensor_digest(asrun[1]),
+                 "param_digest": tensor_digest(trainer.params)}
+    tensors["seen"] = asrun[2]
+    if mesh.rank == 0:
+        tensors.update(asrun_grads=asrun[1], replay_grads=replay[1],
+                       params={k: v.detach().cpu()
+                               for k, v in trainer.params.items()})
+    del asrun, replay, trainer
+
+    # the all-reduce of the S step's gradients: one flat f32 buffer of
+    # every parameter, over gloo through the host
+    grads = [torch.ones(s, device=mesh.device)
+             for s in param_shapes().values()]
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        all_reduce_mean(mesh, grads)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    res["allreduce_ms"] = statistics.median(times[1:])
+    res["allreduce_bytes"] = 4 * sum(g.numel() for g in grads)
+    del grads
+
+    # one data-parallel step of the frozen-head cascade, bf16, 1 a rank
+    cgen = torch.Generator(device="cuda").manual_seed(3)
+    cbatch = [t[local] for t in shifted_batch(cgen, PAR_DP_BATCH,
+                                              CASCADE_TRAIN_HW)]
+    start = init_params(0, model="MaskFlownet")
+    trainer = Trainer(TrainSettings(model="MaskFlownet", fix_head=True),
+                      params=start, mesh=mesh)
+    with record_launches() as ccalls:
+        trainer.train_batch(*cbatch, lr=TRAIN_LR, sync=True)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    m = trainer.train_batch(*cbatch, lr=TRAIN_LR, sync=True)
+    torch.cuda.synchronize()
+    head = [k for k in start if k.startswith(HEAD_SCOPE + "/")]
+    res["cascade"] = {
+        "launches": {k: v for k, v in launch_counts().items() if v},
+        "finite": all(map(math.isfinite, m.values())),
+        "head_unchanged": all(torch.equal(trainer.params[k].detach().cpu(),
+                                          start[k]) for k in head),
+        "rest_moved": sum(not torch.equal(trainer.params[k].detach().cpu(),
+                                          start[k])
+                          for k in start if k not in head),
+        "rest": len(start) - len(head), "head": len(head),
+        "digest": tensor_digest(trainer.params)}
+    del trainer
+
+    # the H-sharded forwards, f32 and bf16, of both models
+    smesh = make_spatial_mesh(1, world, "cuda")
+    rows = smesh.rows
+    hl = SPATIAL_HW[0] // world
+    im1, im2 = (t[:, :, rows.index * hl:(rows.index + 1) * hl].contiguous()
+                .cuda() for t in spatial_images())
+    res["spatial"] = {}
+    scalls = []
+    for model in ("MaskFlownet_S", "MaskFlownet"):
+        for dtype in (torch.float32, torch.bfloat16):
+            p = {k: v.to(mesh.device, dtype) for k, v in
+                 init_params(0, model=model).items()}
+            fwd = make_spatial_forward(build_model(model), ModelConfig(),
+                                       smesh, dtype)
+            with torch.no_grad():
+                with record_launches() as warm:
+                    fwd(p, im1, im2)
+                scalls += warm
+                torch.cuda.synchronize()
+                reset_counts()
+                fwd(p, im1, im2)
+                torch.cuda.synchronize()
+                launched = {k: v for k, v in launch_counts().items() if v}
+                (flow, occ), ms, peak = timed_forwards(
+                    lambda: fwd(p, im1, im2), SPATIAL_REPS)
+            key = f"{model} {str(dtype).split('.')[1]}"
+            res["spatial"][key] = {"launches": launched, "ms": ms,
+                                   "peak_gib": peak}
+            tensors[key] = (flow.cpu(), occ.cpu())
+            del p, flow, occ
+    res["calls"] = keys_out(calls + ccalls + scalls)
+    torch.save(tensors, os.path.join(out, f"gloo{mesh.rank}.pt"))
+    return res
+
+
+def worker_cli(rank: int, world: int, out: str) -> dict:
+    """A rank of ``python -m maskflownet_torch.cli.main`` (run as ``-m``
+    runs it) with the argv in ``out``/cli_argv.json: its exit code, its
+    launch counts and recorded launches, the host time between its steps
+    that no validation falls in."""
+    import runpy
+    with open(os.path.join(out, "cli_argv.json")) as fp:
+        argv = json.load(fp)
+    stamps = []
+    real = Trainer.train_batch_device
+
+    def timed(self, batch, lr=1e-4):
+        metrics = real(self, batch, lr)
+        stamps.append(time.perf_counter())
+        return metrics
+
+    reset_counts()
+    with mock.patch.object(Trainer, "train_batch_device", timed), \
+            mock.patch.object(sys, "argv", ["-m"] + argv), \
+            record_launches() as calls:
+        try:
+            runpy.run_module("maskflownet_torch.cli.main", run_name="__main__",
+                             alter_sys=True)
+            rc = 0
+        except SystemExit as e:
+            rc = e.code
+    torch.cuda.synchronize()
+    # the gaps before steps 3..PAR_CLI_STEPS: validation runs after
+    # steps 1 and CLI_VAL_STEPS
+    gaps = [(b - a) * 1e3 for a, b in zip(stamps[1:], stamps[2:])]
+    return {"rc": rc, "steps": len(stamps),
+            "launches": {k: v for k, v in launch_counts().items() if v},
+            "ms_per_step": statistics.median(gaps) if gaps else None,
+            "calls": keys_out(calls)}
+
+
+def worker_nccl(rank: int, world: int, out: str) -> dict:
+    """A NCCL rank: the bf16 augmented S step (batch 8 a rank) with the
+    all-reduce, in turns with the same step without a group: warm-up
+    launches, whether a step synchronises with the host, ms/step of both,
+    the all-reduce's time by CUDA events."""
+    mesh = make_mesh("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    batch = shifted_batch(gen, TRAIN_BATCH, AUG_SRC_HW)
+    params = init_params(0)
+    nccl = Trainer(par_settings("bfloat16"), params=params, mesh=mesh)
+    alone = Trainer(par_settings("bfloat16"), params=params,
+                    device=mesh.device)
+    with record_launches() as calls:
+        for t in (nccl, alone):
+            for _ in range(3):
+                t.train_batch(*batch, lr=TRAIN_LR, sync=True)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            nccl.train_batch(*batch, lr=TRAIN_LR)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "synchroniz" in str(w.message)]
+    ms = {"nccl": [], "alone": []}
+    launches = {}
+    for name, t in (("alone", alone), ("nccl", nccl), ("nccl", nccl),
+                    ("alone", alone)):
+        step_ms, launched, _ = timed_steps(
+            lambda t=t: t.train_batch(*batch, lr=TRAIN_LR), NCCL_STEPS)
+        ms[name].append(step_ms)
+        launches[name] = launched
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in nccl.params.values()]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    all_reduce_mean(mesh, grads)
+    start.record()
+    for _ in range(20):
+        all_reduce_mean(mesh, grads)
+    end.record()
+    end.synchronize()
+    return {"device": str(mesh.device), "syncs": syncs,
+            "ms_per_step": {k: statistics.mean(v) for k, v in ms.items()},
+            "launches": launches,
+            "allreduce_ms": start.elapsed_time(end) / 20,
+            "calls": keys_out(calls)}
+
+
+WORKERS = {"gloo": worker_gloo, "cli": worker_cli, "nccl": worker_nccl}
+
+
+def parallel_worker(task: str, rank: int, world: int, port: int,
+                    out: str) -> int:
+    """``--parallel-worker TASK RANK WORLD PORT OUT``: one rank of a phase
+    12 task; writes its result to ``out``/<task><rank>.json."""
+    backend = {"gloo": "gloo", "nccl": "nccl"}.get(task)
+    if backend is not None:
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        dist.init_process_group(backend, init_method=f"tcp://localhost:"
+                                f"{port}", world_size=world, rank=rank)
+    try:
+        res = WORKERS[task](rank, world, out)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(os.path.join(out, f"{task}{rank}.json"), "w") as fp:
+        json.dump(res, fp)
+    return 0
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(task: str, world: int, out: str, env=None) -> list[dict]:
+    """Start ``world`` ranks of ``task``, wait for all of them (killing
+    them all past PAR_TIMEOUT_S), require each to exit 0, return their
+    results in rank order."""
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        penv = {**os.environ, **(env or {})}
+        if task == "cli":
+            penv.update(MFN_COORDINATOR=f"localhost:{port}",
+                        MFN_NUM_PROCESSES=str(world),
+                        MFN_PROCESS_ID=str(rank), MFN_DIST_BACKEND="gloo")
+        log = open(os.path.join(out, f"{task}{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            WORKER_CMD + ["--parallel-worker", task, str(rank), str(world),
+                          str(port), out],
+            stdout=log, stderr=subprocess.STDOUT, env=penv), log))
+    t0 = time.perf_counter()
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, PAR_TIMEOUT_S - (time.perf_counter()
+                                                     - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    results = []
+    for rank, (p, _) in enumerate(procs):
+        if p.returncode:
+            with open(os.path.join(out, f"{task}{rank}.log")) as fp:
+                print(fp.read()[-6000:], flush=True)
+        require(p.returncode == 0, f"parallel {task} rank {rank} exited "
+                f"{p.returncode}")
+        with open(os.path.join(out, f"{task}{rank}.json")) as fp:
+            results.append(json.load(fp))
+    print(f"parallel {task}: {world} ranks exited 0 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return results
+
+
+def drive_parallel(smi: str, gen, tmp: str, env: dict, one_process: dict):
+    """Phase 12. ``tmp`` holds phase 10's trees (``env`` points the
+    readers at them); ``one_process``: phase 10's S stage numbers. Returns
+    (each rank's launches by run, the phase's numbers)."""
+    out = os.path.join(tmp, "parallel")
+    os.makedirs(out)
+    numbers, launches, calls = {}, {}, []
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # 1. the one-process side of the f32 equivalence, and its branches
+    params = init_params(0)
+    batch = shifted_batch(gen, PAR_DP_BATCH, AUG_SRC_HW)
+    trainer = Trainer(par_settings("float32"), params=params)
+    draws = [trainer.draw(PAR_DP_BATCH, AUG_SRC_HW)
+             for _ in range(PAR_DP_STEPS)]
+    cpu_draws = [tuple(None if d is None else {
+        k: None if v is None else v.cpu() for k, v in d.items()}
+        for d in dr) for dr in draws]
+    one = step_grads(trainer, batch, draws=draws[0])
+    trainer = Trainer(par_settings("float32"), params=params)
+    one_metrics = [trainer.train_batch(*batch, lr=TRAIN_LR, sync=True,
+                                       draws=d) for d in draws]
+    one_params = {k: v.detach().cpu() for k, v in trainer.params.items()}
+    del trainer
+    torch.save({"batch": [t.cpu() for t in batch], "draws": cpu_draws,
+                "replay": one[2]}, os.path.join(out, "dp_in.pt"))
+
+    # the whole forwards the sharded ones are held against
+    ims = [t.cuda() for t in spatial_images()]
+    whole = {}
+    for model in ("MaskFlownet_S", "MaskFlownet"):
+        for dtype in (torch.float32, torch.bfloat16):
+            p = {k: v.to("cuda", dtype) for k, v in
+                 init_params(0, model=model).items()}
+            with torch.no_grad():
+                (flow, occ), ms, peak = timed_forwards(
+                    lambda: whole_forward(model, p, *ims, dtype),
+                    SPATIAL_REPS)
+            whole[f"{model} {str(dtype).split('.')[1]}"] = (
+                flow.cpu(), occ.cpu(), ms, peak)
+            del p, flow, occ
+    del ims
+    torch.cuda.empty_cache()
+
+    # 2. PAR_WORLD gloo ranks on the card
+    ranks = run_ranks("gloo", PAR_WORLD, out)
+    per = [torch.load(os.path.join(out, f"gloo{r}.pt"))
+           for r in range(PAR_WORLD)]
+    for r, res in enumerate(ranks):
+        calls += keys_in(res["calls"])
+        require(res["device"] == "cuda:0", f"gloo rank {r} on "
+                f"{res['device']}")
+    dps = [res["dp"] for res in ranks]
+    require(all(d == dps[0] for d in dps[1:]), "the gloo ranks' losses, "
+            f"metrics or digests differ: {dps}")
+    want_asrun = (dps[0]["losses"][0], per[0]["asrun_grads"],
+                  merge_branches([p["seen"] for p in per]))
+    want_replay = (dps[0]["losses"][1], per[0]["replay_grads"], None)
+    compare_on_branches(
+        f"f32 {PAR_WORLD} gloo ranks x {PAR_DP_BATCH // PAR_WORLD} vs 1 "
+        f"process x {PAR_DP_BATCH}, augmented {AUG_SRC_HW} -> {TRAIN_HW}",
+        lambda replay: one,
+        lambda replay: want_asrun if replay is None else want_replay)
+    # the first step's metrics: the same parameters and draws, summed in
+    # another order; the later steps' run on parameters that a branch on
+    # the other side may have moved, held through the parameters below
+    for k in ("loss", "epe"):
+        a, b = dps[0]["metrics"][0][k], one_metrics[0][k]
+        require(abs(a - b) <= LOSS_RTOL * abs(b), f"parallel step 1 {k}: "
+                f"{a} vs {b}")
+    start = init_params(0)
+    upd = {k: ((per[0]["params"][k] - one_params[k]).norm()
+               / (one_params[k] - start[k]).norm()).item()
+           for k in start if (one_params[k] - start[k]).norm() > 0}
+    name = max(upd, key=upd.get)
+    total = (sum(((per[0]["params"][k] - one_params[k]) ** 2).sum()
+                 for k in start) ** 0.5 / sum(
+        ((one_params[k] - start[k]) ** 2).sum() for k in start) ** 0.5)
+    print(f"parallel f32 equivalence: the {PAR_DP_STEPS} steps' losses "
+          f"{[m['loss'] for m in dps[0]['metrics']]} vs "
+          f"{[m['loss'] for m in one_metrics]}, epe "
+          f"{[m['epe'] for m in dps[0]['metrics']]} vs "
+          f"{[m['epe'] for m in one_metrics]}; parameters after "
+          f"{PAR_DP_STEPS} steps: |diff|/|update| {total.item():.3e} over "
+          f"all, worst tensor {upd[name]:.3e} ({name}; tol "
+          f"{PAR_UPDATE_RTOL}); the {PAR_WORLD} replicas' gradients and "
+          f"parameters bitwise equal", flush=True)
+    require(upd[name] <= PAR_UPDATE_RTOL, "parallel: parameters after "
+            f"{PAR_DP_STEPS} steps")
+    numbers["dp_equivalence"] = {"params_rel": total.item(),
+                                 "params_worst_rel": upd[name]}
+    numbers["allreduce_gloo_ms"] = [r["allreduce_ms"] for r in ranks]
+    print(f"parallel all-reduce of the S gradients ("
+          f"{ranks[0]['allreduce_bytes'] / 2**20:.1f} MiB f32), gloo through "
+          f"the host, {PAR_WORLD} ranks on one card: "
+          f"{numbers['allreduce_gloo_ms']} ms ({smi})", flush=True)
+
+    cascades = [r["cascade"] for r in ranks]
+    for c in cascades:
+        require(c["finite"] and c["head_unchanged"]
+                and c["rest_moved"] == c["rest"] > 0,
+                f"parallel cascade step: {c}")
+        require(c["launches"] == CASCADE_STEP, f"parallel cascade step "
+                f"launched {c['launches']}, not {CASCADE_STEP}")
+    require(cascades[0]["digest"] == cascades[1]["digest"],
+            "parallel cascade: the replicas differ")
+    launches["cascade_step"] = cascades[0]["launches"]
+    print(f"parallel frozen-head cascade, bf16, {PAR_WORLD} gloo ranks x 1 "
+          f"at {CASCADE_TRAIN_HW}: the head's {cascades[0]['head']} "
+          f"parameters bitwise unchanged, the other {cascades[0]['rest']} "
+          f"moved, replicas equal; launches a rank "
+          f"{cascades[0]['launches']}", flush=True)
+
+    numbers["spatial"] = {}
+    hl = SPATIAL_HW[0] // PAR_WORLD
+    for key, (flow, occ, ms, peak) in whole.items():
+        got_flow = torch.cat([p[key][0] for p in per], 2)
+        got_occ = torch.cat([p[key][1] for p in per], 2)
+        require(got_flow.shape == flow.shape and bool(
+            torch.isfinite(got_flow).all()), f"spatial {key}: flow "
+            f"{tuple(got_flow.shape)}")
+        diff = (got_flow - flow).abs()
+        occ_diff = (got_occ - occ).abs().max().item()
+        rel = (diff.mean() / flow.abs().mean()).item()
+        rows = [r["spatial"][key] for r in ranks]
+        model = key.split()[0]
+        want = {"corr_fwd": 15 if model == "MaskFlownet" else 5}
+        for r in rows:
+            require(r["launches"] == want, f"spatial {key} launched "
+                    f"{r['launches']}, not {want}")
+        numbers["spatial"][key] = {
+            "max_abs_px": diff.max().item(), "mean_rel": rel,
+            "occ_max_abs": occ_diff,
+            "ms_per_frame_ranks": [r["ms"] for r in rows],
+            "whole_ms_per_frame": ms,
+            "peak_gib_ranks": [r["peak_gib"] for r in rows],
+            "whole_peak_gib": peak}
+        f32 = "float32" in key
+        print(f"parallel spatial {key} at {SPATIAL_HW[0]}x{SPATIAL_HW[1]}, "
+              f"batch 1, {PAR_WORLD} row ranks ({hl} rows each) over gloo "
+              f"on one card vs whole: flow max |diff| "
+              f"{diff.max().item():.3e} px, mean |diff| / mean |flow| "
+              f"{rel:.3e} (tol "
+              f"{'%g px max' % SPATIAL_F32_TOL_PX if f32 else '%g mean' % SPATIAL_BF16_REL}"
+              f"), visual max |diff| {occ_diff:.3e}; ms/frame a rank "
+              f"{[round(r['ms'], 3) for r in rows]} vs whole {ms:.3f}; peak "
+              f"GiB a rank {[round(r['peak_gib'], 3) for r in rows]} vs "
+              f"whole {peak:.3f}; launches a rank and forward "
+              f"{rows[0]['launches']} ({smi})", flush=True)
+        if f32:
+            require(diff.max().item() <= SPATIAL_F32_TOL_PX,
+                    f"spatial {key}: flow")
+        else:
+            require(rel <= SPATIAL_BF16_REL, f"spatial {key}: flow")
+    launches["spatial"] = {k: r["launches"] for k, r in
+                           ranks[0]["spatial"].items()}
+    del per, whole
+
+    # 3. the CLI as PAR_WORLD processes at the published widths
+    b = presets.BATCH_SIZE["chairs"]
+    s10 = cut_yaml("MaskFlownet_S.yaml", os.path.join(tmp, "par_s.yaml"),
+                   PAR_CLI_STEPS)
+    ds = cut_yaml("chairs.yaml", os.path.join(tmp, "par_chairs.yaml"),
+                  validation_steps=CLI_VAL_STEPS,
+                  checkpoint_steps=PAR_CLI_STEPS)
+    root = os.path.join(tmp, "par_exp")
+    with open(os.path.join(out, "cli_argv.json"), "w") as fp:
+        json.dump([s10, "--dataset_cfg", ds, "--root", root,
+                   "--device_cache", str(CLI_SLOTS)], fp)
+    val_forwards = 1 + 2 * math.ceil((CLI_SINTEL_FRAMES - 1) / b)
+    want = cli_want(PAR_CLI_STEPS, {**S_STEP, "affine_sample": 2},
+                    (1 + PAR_CLI_STEPS // CLI_VAL_STEPS) * val_forwards,
+                    S_FWD)
+    clis = run_ranks("cli", PAR_WORLD, out, env)
+    for r, res in enumerate(clis):
+        calls += keys_in(res["calls"])
+        require(res["rc"] == 0 and res["steps"] == PAR_CLI_STEPS,
+                f"cli rank {r}: {res['rc']}, {res['steps']} steps")
+        require(res["launches"] == want, f"cli rank {r} launched "
+                f"{res['launches']}, not {want}")
+    logs = [f[:-4] for f in os.listdir(os.path.join(root, "logs"))
+            if f.endswith(".log")]
+    require(len(logs) == 1, f"cli: {PAR_WORLD} processes wrote the logs "
+            f"{logs}")
+    train_log(root, logs[0], PAR_CLI_STEPS, "parallel S stage")
+    checkpoint_of(root, logs[0], PAR_CLI_STEPS, "MaskFlownet_S")
+    require(len(os.listdir(os.path.join(root, "weights"))) == 1,
+            "cli: more than one checkpoint written")
+    with open(os.path.join(root, "logs", logs[0] + ".log")) as fp:
+        require(f"batch={b}, devices={PAR_WORLD}" in fp.read(),
+                "cli: the log does not name the global batch and the "
+                "processes")
+    launches["cli"] = clis[0]["launches"]
+    numbers["cli"] = {"ms_per_step_ranks": [r["ms_per_step"] for r in clis],
+                      "one_process_ms_per_step":
+                          one_process["s"]["ms_per_step"]}
+    print(f"parallel cli: python -m maskflownet_torch.cli.main as "
+          f"{PAR_WORLD} gloo processes on one card, the stock chairs config "
+          f"(global batch {b}, {b // PAR_WORLD} a rank, bf16, a device cache "
+          f"of {CLI_SLOTS}), {PAR_CLI_STEPS} steps: rank 0 alone wrote the "
+          f"log and the step-{PAR_CLI_STEPS} checkpoint, which reads back; "
+          f"launches a rank {want}; ms/step a rank (median host time of "
+          f"steps 3..{PAR_CLI_STEPS}) "
+          f"{[round(r['ms_per_step'], 1) for r in clis]} vs one process "
+          f"{one_process['s']['ms_per_step']:.1f} (phase 10, the log's "
+          f"average at step {CLI_S_STEPS}) ({smi})", flush=True)
+
+    # 4. NCCL: one rank on the card; across cards only where there are two
+    for world, what in ((1, "one rank"), (2, "across cards")):
+        if world > torch.cuda.device_count():
+            print(f"parallel NCCL {what}: not run ("
+                  f"{torch.cuda.device_count()} card)", flush=True)
+            continue
+        res = run_ranks("nccl", world, out)
+        for r in res:
+            calls += keys_in(r["calls"])
+            require(not r["syncs"], f"NCCL {what}: the step synchronises "
+                    f"with the host: {r['syncs']}")
+            per_step = {**S_STEP, "affine_sample": 2}
+            for name in ("nccl", "alone"):
+                require(r["launches"][name] == {
+                    k: v * NCCL_STEPS for k, v in per_step.items()},
+                    f"NCCL {what} {name}: launched {r['launches'][name]}")
+        numbers[f"nccl_{world}"] = {
+            "ms_per_step": [r["ms_per_step"] for r in res],
+            "allreduce_ms": [r["allreduce_ms"] for r in res]}
+        launches[f"nccl_{world}"] = res[0]["launches"]["nccl"]
+        print(f"parallel NCCL {what}: the bf16 augmented S step, batch "
+              f"{TRAIN_BATCH} a rank, {AUG_SRC_HW} -> {TRAIN_HW}: no "
+              f"synchronisation with the host; ms/step with the all-reduce "
+              f"{[round(r['ms_per_step']['nccl'], 3) for r in res]}, the "
+              f"same step without a group "
+              f"{[round(r['ms_per_step']['alone'], 3) for r in res]} (in "
+              f"turns); the all-reduce of the S gradients "
+              f"{[round(r['allreduce_ms'], 3) for r in res]} ms by CUDA "
+              f"events ({smi})", flush=True)
+    check_uncovered(calls, gen, "parallel")
+    return launches, numbers
+
+
+
 def print_deform_ptxas(log: str) -> None:
     """One line a deform kernel from ``nvcc -Xptxas -v``: registers, spill
     stores and loads, and the dynamic shared memory it is launched with
@@ -2994,6 +3686,9 @@ def print_deform_ptxas(log: str) -> None:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        task, rank, world, port, out = sys.argv[2:7]
+        return parallel_worker(task, int(rank), int(world), int(port), out)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
@@ -3063,6 +3758,13 @@ def main() -> int:
             cli_launches, cli_numbers, env = drive_cli(smi, gen, trees)
         with phase("tools"):
             tools_launches, tools_numbers = drive_tools(smi, gen, trees, env)
+        with phase("parallel"):
+            par_launches, par_numbers = drive_parallel(smi, gen, trees, env,
+                                                       cli_numbers)
+    # each rank's launches in each run of phase 12, by run
+    par_runs = {k: v for k, v in par_launches.items() if k != "spatial"}
+    par_runs.update({f"spatial {k}": v
+                     for k, v in par_launches["spatial"].items()})
 
     def entry(name, source, replaces, timing, err, launched, shapes,
               **extra):
@@ -3098,6 +3800,10 @@ def main() -> int:
             "tools": tools_numbers,
             "launches_tools": sum(v.get(name, 0)
                                   for v in tools_launches.values()),
+            "parallel": par_numbers,
+            "launches_parallel_per_rank": {
+                run: counts.get(name, 0) for run, counts in
+                par_runs.items()},
             **extra}
 
     def deform_timing(key):

@@ -10,9 +10,15 @@ CLI's flags, defaults and log lines, and these differences:
 * ``--device`` (default ``cuda``) in place of ``--platform``: the trainer,
   the device cache and the prefetcher all take it, and without a card
   only ``--device cpu`` runs;
-* one process on one card: the JAX CLI's mesh, process index and count
-  become one device, index 0 and count 1, the run id's device tag is
-  ``"1"``, and ``MFN_NUM_PROCESSES`` above 1 is refused;
+* one process a card: ``MFN_COORDINATOR`` (``host:port``),
+  ``MFN_NUM_PROCESSES`` and ``MFN_PROCESS_ID`` start N processes as the
+  JAX CLI's do, joined by ``torch.distributed`` (NCCL on cards, gloo on
+  the CPU; ``MFN_DIST_BACKEND`` names another, as two processes on one
+  card need gloo). ``--batch`` is the global batch: each process loads and
+  steps on 1/N of it, and the gradients are averaged over the processes
+  (the JAX CLI's processes load ``batch`` each). The run id's device tag
+  is N. Every process validates; only process 0 writes the log, the
+  checkpoints, the profile and what ``--valid``/``--predict`` write;
 * ``--profile START,STOP`` records a ``torch.profiler`` trace into
   ``<root>/profile``;
 * every thread ``main`` starts (the loader's producers and mixer, the
@@ -46,15 +52,14 @@ from maskflownet_torch.data import (Dataset, DeviceBatchCache, TrainLoader,
                                     chairs, hd1k, kitti, sintel, things3d,
                                     with_mask)
 from maskflownet_torch.models import ModelConfig
-from maskflownet_torch.parallel import DevicePrefetcher
-from maskflownet_torch.training import (DictMovingAverage, FileLog,
+from maskflownet_torch.parallel import (DevicePrefetcher, batch_sharding,
+                                        initialize_distributed, make_mesh,
+                                        shutdown_distributed)
+from maskflownet_torch.training import (DictMovingAverage, FileLog, NullLog,
                                         MovingAverage, TrainSettings, Trainer,
                                         find_checkpoints, find_log,
                                         generate_run_id, lr_at_step, read_log,
                                         sync_metrics)
-
-# the JAX CLI's process index and count on one card
-PROCESS_INDEX, PROCESS_COUNT = 0, 1
 
 
 def parse_args(argv=None):
@@ -282,12 +287,12 @@ def _restore_args_from_log(args, log_file: str, strict: bool = True) -> None:
             + "\n  ".join(conflicts))
 
 
-def _host_geometry_transform(geo_cfg):
+def _host_geometry_transform(geo_cfg, rank: int):
     """The ``--aug host`` transform of a loader batch: the numpy geometric
-    augmentation of every sample from one RandomState, target-shape uint8
-    images, f16 flow and uint8 mask out."""
+    augmentation of every sample from one RandomState (process ``rank``'s
+    own), target-shape uint8 images, f16 flow and uint8 mask out."""
     from maskflownet_torch.augment.host_geometry import batch_host_geometry
-    aug_rng = np.random.RandomState(1000 + PROCESS_INDEX)
+    aug_rng = np.random.RandomState(1000 + rank)
 
     def transform(batch):
         img1, img2, flow, mask = with_mask(batch)
@@ -366,12 +371,21 @@ class _Profile:
 
 def main(argv=None):
     args = parse_args(argv)
-    if int(os.environ.get("MFN_NUM_PROCESSES", "1")) > 1:
-        raise SystemExit(
-            "maskflownet_torch.cli runs one process on one card; several "
-            "processes (MFN_NUM_PROCESSES > 1) wait for the port's data "
-            "parallelism (ROADMAP queue 1 item 8)")
     device = get_device(args.device)
+    processes = int(os.environ.get("MFN_NUM_PROCESSES", "1"))
+    initialize_distributed(os.environ.get("MFN_COORDINATOR"), processes,
+                           int(os.environ.get("MFN_PROCESS_ID", "0")),
+                           backend=os.environ.get("MFN_DIST_BACKEND"),
+                           device=device)
+    try:
+        return _main(args, make_mesh(device))
+    finally:
+        if processes > 1:
+            shutdown_distributed()
+
+
+def _main(args, mesh):
+    device, rank = mesh.device, mesh.rank
 
     root = args.root
     for d in ("logs", os.path.join("logs", "val"), os.path.join("logs", "debug"),
@@ -402,7 +416,7 @@ def main(argv=None):
             _restore_args_from_log(args, log_file,
                                    strict=not (args.valid or args.predict))
     if args.checkpoint is None or args.clear_steps:
-        _, run_id = generate_run_id(str(PROCESS_COUNT))
+        _, run_id = generate_run_id(str(mesh.world))
 
     config = load_config(args.config)
     dataset_cfg = load_config(args.dataset_cfg)
@@ -411,8 +425,12 @@ def main(argv=None):
 
     dataset_name = dataset_cfg.dataset.value
     batch_size = args.batch or presets.BATCH_SIZE[dataset_name]
+    if batch_size % mesh.world:
+        raise SystemExit(
+            f"global batch {batch_size} must be divisible by the process "
+            f"count {mesh.world} (cf. reference main.py:371)")
     settings, geo_cfg = build_settings(args, config, dataset_cfg)
-    trainer = Trainer(settings, device=device)
+    trainer = Trainer(settings, mesh=mesh)
 
     if checkpoint is not None:
         print(f"Load checkpoint {checkpoint}")
@@ -427,6 +445,8 @@ def main(argv=None):
 
     infer_resize = tuple(int(s) for s in args.resize.split(",")) if args.resize else None
 
+    if (args.predict or args.valid) and rank:
+        return 0                  # process 0 writes the files and the log
     if args.predict:
         from maskflownet_torch.tools import submission
         ck_name = os.path.basename(checkpoint).replace(".npz", "")
@@ -444,13 +464,16 @@ def main(argv=None):
         args, dataset_cfg, batch_size)
     print(f"Loaded data in {default_timer() - t0:.1f}s")
 
-    loader = TrainLoader(train_datasets, batch_size, settings.orig_shape,
-                         seed=PROCESS_INDEX, shard_index=PROCESS_INDEX,
-                         num_shards=PROCESS_COUNT)
+    # this process's slots of the global batch, and its shard of every
+    # dataset's epochs
+    local = batch_sharding(mesh, batch_size)
+    loader = TrainLoader(train_datasets[local], local.stop - local.start,
+                         settings.orig_shape, seed=rank, shard_index=rank,
+                         num_shards=mesh.world)
     # with --aug host the numpy geometric augmentation runs on the
     # prefetch thread and ships target-shape uint8 crops
-    transform = (_host_geometry_transform(geo_cfg) if settings.geo is None
-                 else with_mask)
+    transform = (_host_geometry_transform(geo_cfg, rank)
+                 if settings.geo is None else with_mask)
     try:
         if args.device_cache:
             prefetch = DeviceBatchCache(loader.get, device=device,
@@ -463,10 +486,10 @@ def main(argv=None):
         loader.stop()
         raise
 
-    log = FileLog(os.path.join(
+    log = NullLog() if rank else FileLog(os.path.join(
         root, "logs", "debug" if args.debug else "", f"{run_id}.log"))
     log.log(f"start={trainer.steps}, train={sum(len(d) for d in train_datasets)}, "
-            f"batch={batch_size}, devices={PROCESS_COUNT}")
+            f"batch={batch_size}, devices={mesh.world}")
     log.log(", ".join(f"{k}={v!r}" for k, v in vars(args).items()))
 
     lr_schedule = dataset_cfg.optimizer.learning_rate.get(None) \
@@ -486,7 +509,8 @@ def main(argv=None):
 
     remover = threading.Thread(target=remove_files, daemon=True)
     remover.start()
-    profile = _Profile(args.profile, root, run_id, device, log)
+    profile = _Profile(args.profile if rank == 0 else "", root, run_id,
+                       device, log)
 
     def _train_loop():
         t1 = None
@@ -505,7 +529,7 @@ def main(argv=None):
             metrics = trainer.train_batch_device(batch, lr=lr)
             steps = trainer.steps
             profile.after_step(steps, metrics)
-            if steps <= 20 or steps % 50 == 0:
+            if rank == 0 and (steps <= 20 or steps % 50 == 0):
                 train_avg.update(sync_metrics(metrics))
                 log.log("steps={}{}, loading_time={:.3f}, total_time={:.3f}".format(
                     steps, "".join(f", {k}={v}" for k, v in
@@ -517,7 +541,7 @@ def main(argv=None):
                                          infer_resize)
                     log.log("steps={}{}".format(
                         steps, "".join(f", {k}={v}" for k, v in val.items())))
-                if steps % checkpoint_steps == 0 and PROCESS_INDEX == 0:
+                if steps % checkpoint_steps == 0 and rank == 0:
                     prefix = os.path.join(root, "weights", f"{run_id}_{steps}")
                     trainer.save(prefix)
                     checkpoints.append(prefix)

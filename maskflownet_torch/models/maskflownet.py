@@ -13,6 +13,10 @@ Conventions kept from the JAX package:
   * parameter names are the JAX package's (``conv1a/w``, ``pred_flow6/b``,
     ...); shared pyramid weights are one entry used for both images; the
     cascade's head lives under ``MaskFlownet_S/`` (``HEAD_SCOPE``);
+  * every op that reads across rows goes through ``ctx`` (``nn.conv2d``,
+    ``nn.conv_transpose2d`` and the helpers below), so that a forward with
+    ``ctx.rows`` set runs H-sharded (``parallel/spatial.py``) and one
+    without runs the ops whole;
   * ``ModelConfig.deform`` picks the deformable conv's formulation:
     ``auto`` (the default, as the JAX package's) takes ``kernel``, the CUDA
     kernels of ``csrc/deform.cu``, on a CUDA device and ``warpconv`` (the
@@ -31,7 +35,6 @@ import dataclasses
 import functools
 
 import torch
-import torch.nn.functional as F
 
 from maskflownet_torch import nn
 from maskflownet_torch.ops.correlation import correlation
@@ -57,6 +60,24 @@ STRIDES = (64, 32, 16, 8, 4)  # levels 6..2
 PYRAMID_CH = (16, 32, 64, 96, 128, 196)
 DENSE_CH = (128, 128, 96, 64, 32)
 MD = 4
+
+
+def _corr(ctx: nn.Ctx, f1, f2, md: int) -> torch.Tensor:
+    """The cost volume with its fused LeakyReLU(0.1), row-sharded under
+    ``ctx.rows``."""
+    if ctx.rows is not None:
+        return ctx.rows.correlation(f1, f2, md, leaky=0.1)
+    return correlation(f1, f2, md, leaky=0.1)
+
+
+def _up(ctx: nn.Ctx, x: torch.Tensor, factor: int) -> torch.Tensor:
+    return (upsample(x, factor) if ctx.rows is None
+            else ctx.rows.upsample(x, factor))
+
+
+def _backwarp(ctx: nn.Ctx, img: torch.Tensor, flow: torch.Tensor):
+    return (backwarp(img, flow) if ctx.rows is None
+            else ctx.rows.backwarp(img, flow))
 
 
 def _pyramid(ctx: nn.Ctx, x: torch.Tensor,
@@ -106,8 +127,8 @@ def _pred_flow_mask(ctx: nn.Ctx, lvl: int, x: torch.Tensor):
     bf = ctx.param(f"pred_flow{lvl}/b", (2,), nn.zeros_init)
     wm = ctx.param(f"pred_mask{lvl}/w", (1, cin, 3, 3), nn.msra_prelu())
     bm = ctx.param(f"pred_mask{lvl}/b", (1,), nn.zeros_init)
-    y = F.conv2d(x, torch.cat([wf, wm], 0), torch.cat([bf, bm]),
-                 padding=1).float()
+    y = nn.conv2d(ctx, x, torch.cat([wf, wm], 0), torch.cat([bf, bm]),
+                  padding=1).float()
     return y[:, 0:2], y[:, 2:3]
 
 
@@ -130,21 +151,21 @@ def maskflownet_s(ctx: nn.Ctx, im1: torch.Tensor, im2: torch.Tensor,
 
     # level 6; leaky=0.1 is the LeakyReLU after every cost volume, fused
     # into the kernel's epilogue
-    x = _dense_block(ctx, 6, correlation(c1s[5], c2s[5], MD, leaky=0.1))
+    x = _dense_block(ctx, 6, _corr(ctx, c1s[5], c2s[5], MD))
     flow, mask = _pred_flow_mask(ctx, 6, x)
     flows = [flow]
 
     for idx, lvl in enumerate((5, 4, 3, 2)):
         c1l, c2l = c1s[lvl - 1], c2s[lvl - 1]
         feat = nn.deconv(ctx, f"upfeat{lvl}", x, cfg.upfeat_ch[idx])
-        fm = upsample(torch.cat([flow, mask], 1), 2)
+        fm = _up(ctx, torch.cat([flow, mask], 1), 2)
         flow, mask = fm[:, 0:2], fm[:, 2:3]
         offsets = flow * (cfg.scale / STRIDES[idx + 1])
         warp = deform_conv(ctx, f"deform{lvl}", c2l, offsets, c2l.shape[1],
                            use_bias=cfg.deform_bias, method=cfg.deform)
         warp = warp * torch.sigmoid(mask).to(dtype) + nn.conv(
             ctx, f"conv{lvl}f", feat, c2l.shape[1], act=False)
-        corr = correlation(c1l, nn.leaky_relu(warp), MD, leaky=0.1)
+        corr = _corr(ctx, c1l, nn.leaky_relu(warp), MD)
         x = _dense_block(ctx, lvl, torch.cat([corr, c1l, feat,
                                               flow.to(dtype)], 1))
         if lvl > 2:
@@ -167,10 +188,11 @@ def maskflownet_s(ctx: nn.Ctx, im1: torch.Tensor, im2: torch.Tensor,
         c2s_out = [c21, c1s[1], c1s[2], c24, c25, c26]
     else:
         c2s_out = [c21, c22, c23, c24, c25, c26]
-    mask0 = torch.sigmoid(upsample(mask, 4)) - 0.5
-    flow0 = upsample(flow, 4) * cfg.scale
+    mask0 = torch.sigmoid(_up(ctx, mask, 4)) - 0.5
+    flow0 = _up(ctx, flow, 4) * cfg.scale
     c30 = torch.cat([im1, torch.zeros_like(mask0, dtype=dtype)], 1)
-    c40 = torch.cat([backwarp(im2, flow0).to(dtype), mask0.to(dtype)], 1)
+    c40 = torch.cat([_backwarp(ctx, im2, flow0).to(dtype), mask0.to(dtype)],
+                    1)
     return predictions, occlusion_masks, (c1s, c2s_out, flows, c30, c40)
 
 
@@ -204,9 +226,8 @@ def maskflownet(ctx: nn.Ctx, im1: torch.Tensor, im2: torch.Tensor,
             c2l.shape[1], use_bias=cfg.deform_bias, method=cfg.deform))
 
     flow = head_flows[0]
-    corru = correlation(c1s[5], warped(6, c2s[5], flow, STRIDES[0]), md,
-                        leaky=0.1)
-    corrv = correlation(c3s[5], c4s[5], md, leaky=0.1)
+    corru = _corr(ctx, c1s[5], warped(6, c2s[5], flow, STRIDES[0]), md)
+    corrv = _corr(ctx, c3s[5], c4s[5], md)
     x = _dense_block(ctx, 6, torch.cat([corru, corrv, flow.to(dtype)], 1))
     flow = flow + _pred_flow(ctx, 6, x)
     flows = [flow]
@@ -214,10 +235,9 @@ def maskflownet(ctx: nn.Ctx, im1: torch.Tensor, im2: torch.Tensor,
     for idx, lvl in enumerate((5, 4, 3, 2)):
         c1l, c2l = c1s[lvl - 1], c2s[lvl - 1]
         feat = nn.deconv(ctx, f"upfeat{lvl}", x, cfg.upfeat_ch[idx])
-        flow = upsample(flow, 2)
-        corru = correlation(c1l, warped(lvl, c2l, flow, STRIDES[idx + 1]),
-                            md, leaky=0.1)
-        corrv = correlation(c3s[lvl - 1], c4s[lvl - 1], md, leaky=0.1)
+        flow = _up(ctx, flow, 2)
+        corru = _corr(ctx, c1l, warped(lvl, c2l, flow, STRIDES[idx + 1]), md)
+        corrv = _corr(ctx, c3s[lvl - 1], c4s[lvl - 1], md)
         x = _dense_block(ctx, lvl, torch.cat(
             [c1l, feat, corru, corrv, flow.to(dtype),
              head_flows[idx + 1].to(dtype)], 1))

@@ -64,6 +64,9 @@ class Ctx:
     shapes: dict[str, tuple[tuple[int, ...], InitFn]] | None = None
     prefix: str = ""
     dtype: torch.dtype = torch.float32
+    # the rank's row shard of a spatially sharded forward
+    # (``parallel/spatial.py::RowShard``); None runs the ops whole
+    rows: object | None = None
 
     def scope(self, name: str) -> "Ctx":
         return dataclasses.replace(self, prefix=self.prefix + name + "/")
@@ -113,14 +116,25 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
     return F.leaky_relu(x, slope)
 
 
+def conv2d(ctx: Ctx, x: torch.Tensor, w: torch.Tensor,
+           b: torch.Tensor | None, stride: int = 1, padding: int = 0,
+           dilation: int = 1) -> torch.Tensor:
+    """``F.conv2d`` with zero padding ``padding`` on both axes, or its
+    row-sharded form under ``ctx.rows``."""
+    if ctx.rows is not None:
+        return ctx.rows.conv2d(x, w, b, stride, padding, dilation)
+    return F.conv2d(x, w, b, stride=stride, padding=padding,
+                    dilation=dilation)
+
+
 def conv(ctx: Ctx, name: str, x: torch.Tensor, cout: int, *, k: int = 3,
          stride: int = 1, dilation: int = 1, act: bool = True,
          bias: bool = True) -> torch.Tensor:
     """Conv + optional LeakyReLU(0.1) (``maskflownet_tpu/nn.py:147-162``)."""
     w = ctx.param(f"{name}/w", (cout, x.shape[1], k, k), msra_prelu())
     b = ctx.param(f"{name}/b", (cout,), zeros_init) if bias else None
-    y = F.conv2d(x, w, b, stride=stride, padding=dilation * (k - 1) // 2,
-                 dilation=dilation)
+    y = conv2d(ctx, x, w, b, stride=stride, padding=dilation * (k - 1) // 2,
+               dilation=dilation)
     return leaky_relu(y) if act else y
 
 
@@ -138,6 +152,9 @@ def deconv(ctx: Ctx, name: str, x: torch.Tensor, cout: int, *, k: int = 4,
         raise ValueError(f"deconv pad={pad} out of range for k={k}")
     w = ctx.param(f"{name}/w", (cout, x.shape[1], k, k), msra_prelu())
     b = ctx.param(f"{name}/b", (cout,), zeros_init)
-    y = F.conv_transpose2d(x, w.flip(2, 3).transpose(0, 1), b,
-                           stride=stride, padding=pad)
+    wt = w.flip(2, 3).transpose(0, 1)
+    if ctx.rows is not None:
+        y = ctx.rows.conv_transpose2d(x, wt, b, stride, pad)
+    else:
+        y = F.conv_transpose2d(x, wt, b, stride=stride, padding=pad)
     return leaky_relu(y) if act else y

@@ -546,7 +546,11 @@ def flow_guided_deform_conv3x3(x: torch.Tensor, flow: torch.Tensor,
 def deform_conv(ctx: nn.Ctx, name: str, x: torch.Tensor, flow: torch.Tensor,
                 cout: int, *, use_bias: bool = True,
                 method: str = "auto") -> torch.Tensor:
-    """Parameterized wrapper (kernel 3, stride 1, pad 1, one group)."""
+    """Parameterized wrapper (kernel 3, stride 1, pad 1, one group). Under
+    ``ctx.rows`` (a row-sharded forward) it takes the ``warpconv`` form
+    whatever ``method`` says: the same function."""
     wgt = ctx.param(f"{name}/w", (cout, x.shape[1], 3, 3), nn.msra_prelu())
     b = ctx.param(f"{name}/b", (cout,), nn.zeros_init) if use_bias else None
+    if ctx.rows is not None:
+        return ctx.rows.deform(x, flow, wgt, b)
     return flow_guided_deform_conv3x3(x, flow, wgt, b, method)

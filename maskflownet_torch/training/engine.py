@@ -31,6 +31,18 @@ no gradient for them, and the step hands Adam zeros in their place.
 The augmentations draw from one ``torch.Generator`` that the ``Trainer``
 owns on its device, seeded from ``seed``: geometry first, then colour,
 without waiting for the device.
+
+With a ``mesh`` (``parallel/mesh.py``) of several processes the step is
+data-parallel, as the JAX step over its ``('data',)`` mesh
+(``engine.py:79-86, 156-170``): each rank steps on its slice of the global
+batch, and draws the augmentation for the whole global batch from the
+generator (the same seed on every rank) and keeps its slice, so that N
+ranks of B/N samples get the draws of one process of B, as the JAX step
+draws once for the global batch. After the backward the gradients and the
+two metrics are averaged over the ranks in one all-reduce, so the metrics
+are the global batch's; the parameters are broadcast from rank 0 at
+construction and after every load, and Adam keeps them identical.
+Evaluation runs on each rank alone.
 """
 
 from __future__ import annotations
@@ -51,6 +63,9 @@ from maskflownet_torch.models.maskflownet import (HEAD_SCOPE, ModelConfig,
                                                   build_model, init_params,
                                                   param_shapes)
 from maskflownet_torch.ops.resample import upsample
+from maskflownet_torch.parallel.mesh import (Mesh, all_reduce_mean,
+                                             batch_sharding,
+                                             replicated_sharding)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,14 +118,25 @@ class Trainer:
 
     ``params``: port parameters (OIHW), e.g. from
     ``interop.params_from_jax``; without them the weights are drawn from
-    ``seed`` by ``models.init_params``."""
+    ``seed`` by ``models.init_params``. ``mesh``: the data-parallel group
+    of this process (``parallel.make_mesh``); the trainer runs on its
+    device, which ``device``, if given, must name."""
 
     def __init__(self, settings: TrainSettings = TrainSettings(),
-                 device: str | torch.device = "cuda", seed: int = 0,
-                 params: dict[str, torch.Tensor] | None = None):
+                 device: str | torch.device | None = None, seed: int = 0,
+                 params: dict[str, torch.Tensor] | None = None,
+                 mesh: Mesh | None = None):
         self.settings = settings
         self.model_fn = build_model(settings.model)
-        self.device = get_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = get_device("cuda" if device is None else device)
+        else:
+            self.device = mesh.device
+            if device is not None and get_device(device).type != \
+                    mesh.device.type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
         self.shapes = param_shapes(settings.model_cfg, settings.model)
         if params is None:
             params = init_params(seed, settings.model_cfg, settings.model)
@@ -128,6 +154,27 @@ class Trainer:
                                     betas=(0.9, 0.999), eps=settings.adam_eps)
         self.steps = 0
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._replicate()
+
+    @property
+    def world(self) -> int:
+        """The number of data-parallel processes (1 without a mesh)."""
+        return 1 if self.mesh is None else self.mesh.world
+
+    def _replicate(self) -> None:
+        """Rank 0's parameters on every rank (nothing without a group)."""
+        if self.mesh is not None:
+            replicated_sharding(self.mesh, self.params.values())
+
+    def _local_draws(self, draws):
+        """This rank's slice of a global batch's draws (every draw but the
+        0-d ones is per sample, batch first)."""
+        if self.world == 1:
+            return draws
+        return tuple(None if d is None else {
+            k: v if v is None or v.dim() == 0
+            else v[batch_sharding(self.mesh, v.shape[0])]
+            for k, v in d.items()} for d in draws)
 
     # ------------------------------------------------------------------
     # training
@@ -156,7 +203,9 @@ class Trainer:
         mask: None, (B,H,W) or (B,1,h,w) broadcastable to (B,1,H,W), in
         [0, 255]. Tensors or arrays. ``draws``: the result of
         :meth:`draw`, moved to this device; without it the step draws its
-        own."""
+        own. The draws are the global batch's: with a mesh of N processes
+        the batch is this rank's B of the global N * B, and the rank takes
+        its slice of the draws."""
         s = self.settings
         dev, dtype = self.device, s.dtype()
         # contiguous NCHW (a permuted view's strides would reach the
@@ -174,8 +223,9 @@ class Trainer:
             if mask.dim() == 3:
                 mask = mask[:, None]
         if draws is None:
-            draws = self.draw(b, (h, w))
-        geo_draws, color_draws = (_to_device(d, dev) for d in draws)
+            draws = self.draw(b * self.world, (h, w))
+        geo_draws, color_draws = (_to_device(d, dev)
+                                  for d in self._local_draws(draws))
         if s.geo is not None:
             img1, img2, flow, mask = geometry_augmentation(
                 img1, img2, flow, mask, geo_draws, s.geo, image_dtype=dtype)
@@ -221,10 +271,29 @@ class Trainer:
         the device that do not wait for it, or floats with ``sync=True``."""
         loss, epe = self.loss(img1, img2, flow, mask, draws)
         loss.backward()
+        loss = loss.detach()
+        if self.mesh is not None and self.mesh.group is not None:
+            loss, epe = self.reduce_gradients(loss, epe)
         self.apply_gradients(lr)
         self.steps += 1
-        metrics = {"loss": loss.detach(), "epe": epe}
+        metrics = {"loss": loss, "epe": epe}
         return sync_metrics(metrics) if sync else metrics
+
+    def reduce_gradients(self, loss, epe):
+        """Average the trainable parameters' gradients (zeros where the
+        backward left none) and the metrics over the mesh, in one
+        all-reduce queued on the current stream. Returns the global
+        ``(loss, epe)``."""
+        grads = []
+        for k, p in self.params.items():
+            if k in self.frozen:
+                continue
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+        metrics = torch.stack([loss, epe]).float()
+        all_reduce_mean(self.mesh, grads + [metrics])
+        return metrics[0], metrics[1]
 
     def train_batch_device(self, batch, lr: float = 1e-4):
         """One step on a device-resident batch laid out as ``TrainLoader``,
@@ -334,6 +403,7 @@ class Trainer:
         with torch.no_grad():
             for k, p in self.params.items():
                 p.copy_(ck["params"][k])
+        self._replicate()
         if load_states and ck["mu"] is not None:
             if ck["count"] is None or ck["step"] is None:
                 raise ValueError(f"checkpoint has moments but no "
@@ -369,3 +439,4 @@ class Trainer:
         with torch.no_grad():
             for k, v in head.items():
                 self.params[k].copy_(v)
+        self._replicate()

@@ -54,6 +54,17 @@ class FileLog:
         self._fp.close()
 
 
+class NullLog:
+    """A :class:`FileLog` that writes nothing: the log of every process
+    but the first in a multi-process run."""
+
+    def log(self, msg: str) -> None:
+        del msg
+
+    def close(self) -> None:
+        pass
+
+
 def generate_run_id(device_tag: str = "") -> tuple[str, str]:
     """-> (tag, run_id): 3-hex digest of host+time+devices, plus a
     timestamp to the second."""

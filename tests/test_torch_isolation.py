@@ -69,6 +69,8 @@ def test_importing_the_port_loads_no_banned_module():
             "maskflownet_torch.data, maskflownet_torch.data.loader, "
             "maskflownet_torch.data.device_cache, "
             "maskflownet_torch.parallel, "
+            "maskflownet_torch.parallel.mesh, "
+            "maskflownet_torch.parallel.spatial, "
             "maskflownet_torch.tools.input_probe, "
             "maskflownet_torch.cli.main, maskflownet_torch.config, "
             "maskflownet_torch.data.sintel, maskflownet_torch.data.kitti, "
