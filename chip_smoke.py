@@ -170,6 +170,22 @@ Phases, each timed on its own line:
      all-reduce's time; NCCL across cards only where the machine has two
      (else "not run"). Every launch shape the ranks recorded is held
      against the plain versions as in phase 10.
+ 13. native (after phase 11, on its trees): the port's C++ host runtime
+     (``maskflownet_torch/native/``): a fresh ``g++`` build on this host
+     timed; ``png_unfilter`` bitwise against the plain ``codecs._unfilter``
+     on random rows filtered by every filter id and by all five in turn,
+     at a Sintel frame (436x1024, 8-bit RGB, stride 3072), a KITTI flow
+     PNG (370x1224, 16-bit RGB, stride 7344) and 1, 2, 4 and 8 bytes a
+     pixel; filter 5 refused; the unfilter's ms/frame native and plain, ``image_load``/``png16_load`` through each; and
+     ``infer -i``'s ms/frame past ``load_trainer`` from phase 11, which
+     decoded and encoded through it, beside ``do_batch``'s;
+ 14. twopass: the JAX package's TPU sampler of geometric augmentation
+     (``TrainSettings.aug_sampler="twopass"``, the CLI's
+     ``--aug_sampler``), card vs CPU with the same draws (f32, then as
+     the step samples: bf16 images, f16 labels) and its labels against
+     the exact sampler at ~300 px flow; then bf16 ms/step of the
+     augmented S step, chairs batch 8, ``affine_sample`` vs ``twopass``
+     in alternating windows, exact launch counts in every window.
 The card-vs-CPU comparisons run the deform kernels' form on both sides
 (``deform="kernel"``: its plain pair on the CPU), so that both take the
 same sample coordinates.
@@ -206,6 +222,7 @@ import threading
 import time
 import warnings
 import zlib
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -219,7 +236,9 @@ import maskflownet_torch.ops.deform as deform_module
 import maskflownet_torch.tools.import_mxnet as imx_module
 import maskflownet_torch.tools.infer as infer_module
 import maskflownet_torch.tools.parity_eval as parity_module
-from maskflownet_torch.augment import draw_geometry
+from maskflownet_torch import native
+from maskflownet_torch.augment import draw_geometry, geometry_augmentation
+from maskflownet_torch.augment.geometry import _maps as geometry_maps
 from maskflownet_torch.augment.geometry import sample_grids
 from maskflownet_torch import interop
 from maskflownet_torch.config import CONFIG_DIR, load_config, presets
@@ -232,6 +251,7 @@ from maskflownet_torch.models import (HEAD_SCOPE, ModelConfig, build_model,
 from maskflownet_torch.nn import apply_ctx
 from maskflownet_torch.ops import _build
 from maskflownet_torch.ops.affine import affine_sample, affine_sample_plain
+from maskflownet_torch.ops.affine2pass import affine_sample_twopass
 from maskflownet_torch.ops.correlation import (corr_bwd_f1, corr_bwd_f2,
                                                corr_fwd, correlation,
                                                correlation_bwd_f1_plain,
@@ -2165,30 +2185,29 @@ def drive_input(smi: str):
     return main_launches, out
 
 
-def png8_save(path: str, arr) -> None:
-    """An 8-bit PNG of (H, W) gray or (H, W, 3) RGB uint8, written with zlib
-    (the card's machine has no image library): its rows filtered None,
-    Sub, Up, Average and Paeth in turn, its data in IDAT chunks of 64 KiB,
-    so that ``codecs.image_load`` decodes every filter and several
-    chunks."""
-    h, w = arr.shape[:2]
-    bpp = 1 if arr.ndim == 2 else arr.shape[2]
-    raw = arr.reshape(h, w * bpp).astype(np.int16)
-    up = np.concatenate([np.zeros_like(raw[:1]), raw[:-1]])
-    rows = np.empty((h, w * bpp + 1), np.uint8)
-    for ft in range(5):                     # the rows of each filter
-        r, b = raw[ft::5], up[ft::5]
-        a = np.pad(r, ((0, 0), (bpp, 0)))[:, :-bpp]         # left
-        c = np.pad(b, ((0, 0), (bpp, 0)))[:, :-bpp]         # up-left
-        if ft == 4:
-            pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
-            pred = np.where((pa <= pb) & (pa <= pc), a,
-                            np.where(pb <= pc, b, c))
-        else:
-            pred = (0, a, b, (a + b) >> 1)[ft]
-        rows[ft::5, 0] = ft
-        rows[ft::5, 1:] = (r - pred) % 256
-    data = zlib.compress(rows.tobytes(), 1)
+def filter_rows(body, bpp: int, filters=(0, 1, 2, 3, 4)):
+    """The PNG filter bytes and filtered rows of ``body`` (h, stride) uint8,
+    row y filtered by ``filters[y % len(filters)]`` (None, Sub, Up,
+    Average, Paeth) with ``bpp`` bytes a pixel: ``((h,) uint8, (h,
+    stride) uint8)``."""
+    raw = body.astype(np.int16)
+    h = raw.shape[0]
+    a = np.pad(raw, ((0, 0), (bpp, 0)))[:, :-bpp]             # left
+    b = np.concatenate([np.zeros_like(raw[:1]), raw[:-1]])      # up
+    c = np.pad(b, ((0, 0), (bpp, 0)))[:, :-bpp]               # up-left
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    preds = np.stack([np.zeros_like(raw), a, b, (a + b) >> 1, paeth])
+    ft = np.array([filters[y % len(filters)] for y in range(h)], np.uint8)
+    return ft, ((raw - preds[ft, np.arange(h)]) % 256).astype(np.uint8)
+
+
+def png_file(path: str, ft, rows, w: int, depth: int, ctype: int) -> None:
+    """A PNG of filtered rows (``filter_rows``), written with zlib (the
+    card's machine has no image library), its data in IDAT chunks of 64
+    KiB."""
+    h = rows.shape[0]
+    data = zlib.compress(np.concatenate([ft[:, None], rows], 1).tobytes(), 1)
 
     def chunk(typ: bytes, payload: bytes) -> bytes:
         return (len(payload).to_bytes(4, "big") + typ + payload
@@ -2197,10 +2216,21 @@ def png8_save(path: str, arr) -> None:
     with open(path, "wb") as fp:
         fp.write(b"\x89PNG\r\n\x1a\n")
         fp.write(chunk(b"IHDR", w.to_bytes(4, "big") + h.to_bytes(4, "big")
-                       + bytes([8, 0 if bpp == 1 else 2, 0, 0, 0])))
+                       + bytes([depth, ctype, 0, 0, 0])))
         for i in range(0, len(data), 1 << 16):
             fp.write(chunk(b"IDAT", data[i:i + (1 << 16)]))
         fp.write(chunk(b"IEND", b""))
+
+
+def png8_save(path: str, arr) -> None:
+    """An 8-bit PNG of (H, W) gray or (H, W, 3) RGB uint8, its rows filtered
+    None, Sub, Up, Average and Paeth in turn and its data in several IDAT
+    chunks, so that ``codecs.image_load`` decodes every filter and several
+    chunks."""
+    h, w = arr.shape[:2]
+    bpp = 1 if arr.ndim == 2 else arr.shape[2]
+    ft, rows = filter_rows(arr.reshape(h, w * bpp), bpp)
+    png_file(path, ft, rows, w, 8, 0 if bpp == 1 else 2)
 
 
 def write_sintel_tree(root: str, rng) -> dict:
@@ -3651,6 +3681,276 @@ def drive_parallel(smi: str, gen, tmp: str, env: dict, one_process: dict):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the native host runtime
+# ---------------------------------------------------------------------------
+
+# the unfilter at a Sintel frame (8-bit RGB, stride 3072) and a KITTI flow
+# PNG (16-bit RGB, stride 7344), and at NATIVE_SMALL (rows, pixels) for the
+# other byte widths a pixel, each with every filter alone and all five in
+# turn; timings the median of NATIVE_REPS calls (the plain unfilter's and
+# the loads through it of NATIVE_PLAIN_REPS)
+NATIVE_FRAMES = (("Sintel 8-bit RGB", (436, 1024), 3),
+                 ("KITTI 16-bit RGB", (370, 1224), 6))
+NATIVE_BPPS, NATIVE_SMALL = (1, 2, 4, 8), (64, 96)
+NATIVE_FILTERS = ((0,), (1,), (2,), (3,), (4,), (0, 1, 2, 3, 4))
+NATIVE_REPS, NATIVE_PLAIN_REPS, NATIVE_SEED = 20, 3, 12
+
+
+def host_median_ms(fn, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def plain_unfilter(body, filters, bpp) -> None:
+    """``native.png_unfilter``'s arguments, unfiltered by the plain numpy
+    version into ``body``."""
+    body[...] = codecs._unfilter(body, np.asarray(filters), bpp)
+
+
+def drive_native(smi: str, tmp: str, tools_infer: dict) -> dict:
+    """The port's C++ host runtime: a fresh ``g++`` build on this host,
+    ``png_unfilter`` bitwise against ``codecs._unfilter``, the unfilter's
+    and the loads' times, plain and native, and ``infer -i``'s ms/frame from phase 11 (which decoded and
+    encoded through it). Returns the phase's numbers."""
+    root = os.path.join(tmp, "native")
+    so = native.build(build_dir=Path(root) / "build")
+    out = {"gxx_s": native.build_seconds}
+    print(f"native: g++ {' '.join(native.CXX_FLAGS)} png_filters.cpp on "
+          f"this host: {native.build_seconds:.3f} s ({so.name})", flush=True)
+    rng = np.random.RandomState(NATIVE_SEED)
+
+    # png_unfilter and the plain unfilter, bitwise
+    cases = list(NATIVE_FRAMES) + [(f"{bpp} bytes a pixel", NATIVE_SMALL,
+                                    bpp) for bpp in NATIVE_BPPS]
+    for name, (h, w), bpp in cases:
+        body = rng.randint(0, 256, (h, w * bpp), dtype=np.uint8)
+        for filters in NATIVE_FILTERS:
+            ft, rows = filter_rows(body, bpp, filters)
+            got = rows.copy()
+            native.png_unfilter(got, ft, bpp)
+            require(np.array_equal(got, body) and np.array_equal(
+                codecs._unfilter(rows, ft, bpp), body),
+                f"native: unfilter of {name}, filters {filters}")
+    try:
+        native.png_unfilter(np.zeros((2, 6), np.uint8),
+                            np.array([1, 5], np.uint8), 3)
+        refused = False
+    except ValueError as err:
+        refused = "unknown PNG filter 5" in str(err)
+    require(refused, "native: filter 5 was not refused")
+    print(f"native: png_unfilter bitwise codecs._unfilter at "
+          f"{len(cases)} shapes x {len(NATIVE_FILTERS)} filter sets "
+          f"(bpp {sorted({c[2] for c in cases})}); filter 5 refused",
+          flush=True)
+
+    # the unfilter and the loads, plain and native
+    for name, (h, w), bpp in NATIVE_FRAMES:
+        ft, rows = filter_rows(rng.randint(0, 256, (h, w * bpp),
+                                           dtype=np.uint8), bpp)
+        copies = [rows.copy() for _ in range(NATIVE_REPS)]
+        native_ms = host_median_ms(
+            lambda: native.png_unfilter(copies.pop(), ft, bpp), NATIVE_REPS)
+        plain_ms = host_median_ms(lambda: codecs._unfilter(rows, ft, bpp),
+                                  NATIVE_PLAIN_REPS)
+        depth = 8 if bpp == 3 else 16
+        path = os.path.join(root, f"frame{depth}.png")
+        png_file(path, ft, rows, w, depth, 2)
+        load = codecs.image_load if depth == 8 else codecs.png16_load
+        got = load(path)
+        load_ms = host_median_ms(lambda: load(path), NATIVE_REPS)
+        with mock.patch.object(codecs.native, "png_unfilter",
+                               plain_unfilter):
+            require(np.array_equal(load(path), got), f"native: {name} "
+                    "loads differently through the plain unfilter")
+            load_plain_ms = host_median_ms(lambda: load(path),
+                                           NATIVE_PLAIN_REPS)
+        out[name] = {"unfilter_ms": native_ms, "unfilter_plain_ms": plain_ms,
+                     "load_ms": load_ms, "load_plain_ms": load_plain_ms,
+                     "file_bytes": os.path.getsize(path)}
+        print(f"native {name} {h}x{w}: unfilter {native_ms:.3f} ms/frame "
+              f"native vs {plain_ms:.3f} plain ({plain_ms / native_ms:.1f}x); "
+              f"{load.__name__} {load_ms:.3f} ms/frame vs {load_plain_ms:.3f} "
+              f"through the plain unfilter ({os.path.getsize(path)} bytes; "
+              f"{smi})", flush=True)
+
+    # infer -i as phase 11 ran it, through the native codec
+    for key in ("i_MaskFlownet_S", "i_MaskFlownet"):
+        nums = tools_infer[key]
+        out[key] = {"ms_per_frame": nums["ms_per_frame"],
+                    "do_batch_ms_per_frame": nums["do_batch_ms_per_frame"]}
+        print(f"native: infer -i {key[2:]} (phase tools, 436x1024, bf16): "
+              f"{nums['ms_per_frame']:.3f} ms/frame past load_trainer, "
+              f"do_batch {nums['do_batch_ms_per_frame']:.3f} ms/frame "
+              f"({smi})", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the two-pass sampler of geometric augmentation
+# ---------------------------------------------------------------------------
+
+# twopass card vs CPU in f32 within TWOPASS_REL (max |diff| over max |CPU|:
+# summation orders only), and as the step samples (bf16 images, f16 labels)
+# within four ulps of values in [0.5, 1) on the images and the mask (each
+# device computes the pixel maps, whose sin and cos differ in their last
+# bits, and a half-precision rounding of either pass's products or sums may
+# then land an ulp apart) and the JAX package's label bound on the flow
+# (``tests/test_augment.py:338-380``: max 1 px and median 0.15 px at ~300
+# px flow, where both masks exceed 0.999, borders left out); twopass
+# against the exact sampler: f32 labels within that test's 0.35 px, f16
+# labels recorded (at the chairs shapes the f16 roundings, an ulp of 0.25
+# at 300 px, magnified by the inverse zoom, up to 2, may pass 1 px, as
+# they do in the JAX function); bf16 times in alternating windows of
+# TWOPASS_STEPS steps, TWOPASS_PAIRS pairs
+TWOPASS_REL, TWOPASS_PAIRS, TWOPASS_STEPS = 1e-5, 3, 10
+TWOPASS_F16_MAX, TWOPASS_F16_MEDIAN, TWOPASS_F32_MAX = 1.0, 0.15, 0.35
+
+
+def alternating_ms(steps: dict, per_step: dict, what: str) -> dict:
+    """ms/step of each of ``steps`` (name -> one step), windows of
+    TWOPASS_STEPS steps taken in turn TWOPASS_PAIRS times, the median
+    window; each window's launches exactly ``per_step[name]`` a step."""
+    times = {name: [] for name in steps}
+    for _ in range(TWOPASS_PAIRS):
+        for name, step in steps.items():
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            for _ in range(TWOPASS_STEPS):
+                metrics = step()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3
+                               / TWOPASS_STEPS)
+            launches = {k: v for k, v in launch_counts().items() if v}
+            want = {k: v * TWOPASS_STEPS for k, v in per_step[name].items()}
+            require(launches == want, f"twopass {what} {name}: launched "
+                    f"{launches}, not {want}")
+            require(math.isfinite(metrics["loss"].item()),
+                    f"twopass {what} {name}: non-finite loss")
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
+def smooth_large_flow(b: int, hw):
+    """A smooth flow of ~300 px, (dy, dx), as the JAX package's label bound
+    test draws it."""
+    yy, xx = torch.meshgrid(torch.arange(hw[0], dtype=torch.float32),
+                            torch.arange(hw[1], dtype=torch.float32),
+                            indexing="ij")
+    flow = torch.stack([280.0 + torch.sin(yy / 9) * 30,
+                        -310.0 + torch.cos(xx / 11) * 25])
+    return flow[None].expand(b, 2, *hw).contiguous().to("cuda")
+
+
+def interior_flow_err(got, want):
+    """|dflow| (max over dy, dx) where both masks exceed 0.999, 3-pixel
+    borders left out."""
+    m = (got[3][:, 0] > 0.999) & (want[3][:, 0] > 0.999)
+    m[:, :3] = m[:, -3:] = False
+    m[:, :, :3] = m[:, :, -3:] = False
+    return (got[2] - want[2]).abs().amax(1)[m].cpu()
+
+
+def drive_twopass(smi: str, gen) -> dict:
+    """The two-pass sampler on the card: against the CPU and the exact
+    sampler, then the augmented step's bf16 times with each sampler in
+    alternating windows. Returns the phase's numbers."""
+    out = {}
+    params = init_params(0)
+
+    # card vs CPU with the same draws, f32, at the chairs step's shapes
+    geo = presets.geometry_aug_config("chairs", TRAIN_HW, AUG_SRC_HW)
+    b, (th, tw) = TRAIN_BATCH, TRAIN_HW
+    draws = draw_geometry(gen, b, geo, "cuda")
+    _, (m1, t1, m2, t2) = geometry_maps(draws, geo)
+    m, t = torch.cat([m1, m2]), torch.cat([t1, t2])
+    imgs = torch.rand((2 * b, 3) + AUG_SRC_HW, generator=gen, device="cuda")
+    card = affine_sample_twopass(imgs, m, t, th, tw)
+    cpu = affine_sample_twopass(imgs.cpu(), m.cpu(), t.cpu(), th, tw)
+    out["f32_card_vs_cpu"] = rel_err(card.cpu(), cpu)
+    print(f"twopass f32 {2 * b}x3x{AUG_SRC_HW} -> {TRAIN_HW}: card vs CPU "
+          f"{out['f32_card_vs_cpu']:.3e} (tol {TWOPASS_REL})", flush=True)
+    require(out["f32_card_vs_cpu"] <= TWOPASS_REL, "twopass f32 card vs CPU")
+
+    # the augmentation as the step runs it (bf16 images, f16 labels) on
+    # the card and on the CPU, and against the exact sampler on the card
+    inputs = (imgs[:b], imgs[b:], smooth_large_flow(b, AUG_SRC_HW),
+              torch.ones((b, 1) + AUG_SRC_HW, device="cuda"))
+    cpu_draws = {k: v.cpu() for k, v in draws.items()}
+    runs = {}
+    for name, dev, kwargs in (
+            ("f16 card", "cuda", dict(sampler="twopass")),
+            ("f16 cpu", "cpu", dict(sampler="twopass")),
+            ("f32 card", "cuda", dict(sampler="twopass",
+                                      label_dtype=torch.float32)),
+            ("exact card", "cuda", {})):
+        runs[name] = [v.cpu() for v in geometry_augmentation(
+            *(v.to(dev) for v in inputs),
+            draws if dev == "cuda" else cpu_draws, geo, **kwargs)]
+    card, cpu = runs["f16 card"], runs["f16 cpu"]
+    flow_err = interior_flow_err(card, cpu)
+    dev_err = [abs_err(card[0], cpu[0]), abs_err(card[1], cpu[1]),
+               abs_err(card[3], cpu[3]), flow_err.max().item(),
+               flow_err.median().item()]
+    tols = (2 ** -6, 2 ** -6, 2 ** -9, TWOPASS_F16_MAX, TWOPASS_F16_MEDIAN)
+    out["card_vs_cpu"] = dev_err
+    print(f"twopass as the step samples (bf16 images, f16 labels) card vs "
+          f"CPU: img1, img2, mask max |diff| {dev_err[0]:.3e}, "
+          f"{dev_err[1]:.3e}, {dev_err[2]:.3e} (tol four ulps: "
+          f"{tols[0]:.3e}, {tols[1]:.3e}, {tols[2]:.3e}); flow in the "
+          f"interior max {dev_err[3]:.3e} px, median {dev_err[4]:.3e} (tol "
+          f"{TWOPASS_F16_MAX}, {TWOPASS_F16_MEDIAN})", flush=True)
+    require(all(e <= tol for e, tol in zip(dev_err, tols)),
+            "twopass card vs CPU")
+    f16_err = interior_flow_err(runs["f16 card"], runs["exact card"])
+    f32_err = interior_flow_err(runs["f32 card"], runs["exact card"])
+    out["label_px"] = {
+        "f16_max": f16_err.max().item(),
+        "f16_median": f16_err.median().item(),
+        "f32_max": f32_err.max().item(),
+        "interior": f16_err.numel() / (b * th * tw)}
+    lab = out["label_px"]
+    print(f"twopass flow labels vs the exact sampler at ~300 px flow, "
+          f"{lab['interior']:.2f} of the pixels: f16 max "
+          f"{lab['f16_max']:.3f} px, median {lab['f16_median']:.3f} "
+          f"(recorded; the JAX test's {TWOPASS_F16_MAX}, "
+          f"{TWOPASS_F16_MEDIAN} at its own shapes); f32 max "
+          f"{lab['f32_max']:.3f} (tol {TWOPASS_F32_MAX})", flush=True)
+    require(lab["f32_max"] < TWOPASS_F32_MAX,
+            "twopass f32 labels vs the exact sampler")
+    del runs, inputs, imgs, card, cpu
+
+    # bf16 times of the augmented step, chairs batch 8, alternating
+    aug = TrainSettings(color=presets.color_aug_config("chairs"), geo=geo)
+    aug_batch = shifted_batch(gen, TRAIN_BATCH, AUG_SRC_HW)
+    trainers = {sampler: Trainer(dataclasses.replace(
+        aug, aug_sampler=sampler), device="cuda", params=params)
+        for sampler in ("affine", "twopass")}
+
+    def step(name):
+        return lambda: trainers[name].train_batch(*aug_batch, lr=TRAIN_LR)
+
+    with record_launches() as calls:
+        for name in trainers:
+            for _ in range(2):
+                step(name)()
+    torch.cuda.synchronize()
+    check_uncovered(calls, gen, "twopass bf16 steps")
+    per_step = {"affine": {**S_STEP, "affine_sample": 2}, "twopass": S_STEP}
+    ms = alternating_ms({name: step(name) for name in trainers}, per_step,
+                        "augmented step")
+    out["ms_per_step"] = ms
+    print(f"twopass bf16 augmented S step {TRAIN_BATCH}x{AUG_SRC_HW[0]}x"
+          f"{AUG_SRC_HW[1]} -> {TRAIN_HW[0]}x{TRAIN_HW[1]}, alternating: "
+          f"affine_sample {ms['affine']:.3f} ms/step, twopass "
+          f"{ms['twopass']:.3f} ({smi})", flush=True)
+    return out
+
+
 def print_deform_ptxas(log: str) -> None:
     """One line a deform kernel from ``nvcc -Xptxas -v``: registers, spill
     stores and loads, and the dynamic shared memory it is launched with
@@ -3758,9 +4058,13 @@ def main() -> int:
             cli_launches, cli_numbers, env = drive_cli(smi, gen, trees)
         with phase("tools"):
             tools_launches, tools_numbers = drive_tools(smi, gen, trees, env)
+        with phase("native"):
+            native_numbers = drive_native(smi, trees, tools_numbers["infer"])
         with phase("parallel"):
             par_launches, par_numbers = drive_parallel(smi, gen, trees, env,
                                                        cli_numbers)
+    with phase("twopass"):
+        twopass_numbers = drive_twopass(smi, gen)
     # each rank's launches in each run of phase 12, by run
     par_runs = {k: v for k, v in par_launches.items() if k != "spatial"}
     par_runs.update({f"spatial {k}": v
@@ -3804,6 +4108,7 @@ def main() -> int:
             "launches_parallel_per_rank": {
                 run: counts.get(name, 0) for run, counts in
                 par_runs.items()},
+            "native": native_numbers, "twopass": twopass_numbers,
             **extra}
 
     def deform_timing(key):

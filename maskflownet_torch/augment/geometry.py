@@ -11,14 +11,24 @@ Counterpart of ``maskflownet_tpu/augment/geometry.py:41-51, 206-404``
   sampling of img2 through the relative transform, and the induced
   transform of the flow vectors, ``F'(p) = T2^-1(T1 p + F~(p)) - p``.
 
-Both samplings go through ``ops.affine.affine_sample``: the hand-written
-CUDA kernel on a CUDA tensor, the plain version (the JAX package's
-off-TPU gather path) on a CPU tensor. The JAX package bounds the source
-window each output tile reads (``_pick_sampler``, ``:145-203``) only so
-that its TPU kernel can stage that window in VMEM; the CUDA kernel reads
-its corners from global memory and needs no bound. The JAX package's
-``twopass`` sampler (``:336-368``, ``ops/affine2pass.py``), a TPU
-reformulation, is not ported.
+``sampler`` picks how the two samplings run (the explicit counterpart of
+``MFN_AUG_SAMPLER``; the port reads no environment variable):
+
+* ``"affine"`` (the default, the JAX package's off-TPU gather path):
+  ``ops.affine.affine_sample``, the hand-written CUDA kernel on a CUDA
+  tensor, the plain version on a CPU tensor, in f32. The JAX package
+  bounds the source window each output tile reads (``_pick_sampler``,
+  ``:145-203``) only so that its TPU kernel can stage that window in
+  VMEM; the CUDA kernel reads its corners from global memory and needs no
+  bound.
+* ``"twopass"`` (the JAX package's TPU default, ``:330-368``):
+  ``ops.affine2pass.affine_sample_twopass``, the images in bf16 and the
+  labels (mask, flow * mask) in ``label_dtype``, f16 unless f32 is asked
+  for (the counterpart of ``MFN_AUG_LABEL_DTYPE``). Its sheared stencil is
+  another function than the bilinear one: the TPU's augmented batches. A
+  config whose rotations pass ``_TWOPASS_MAX_ANGLE_RAD``, where the JAX
+  package's static two-pass bounds stop being sound, takes ``"affine"``,
+  as the JAX package does.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import math
 import torch
 
 from maskflownet_torch.ops.affine import affine_sample
+from maskflownet_torch.ops.affine2pass import affine_sample_twopass
 from maskflownet_torch.ops.warp import affine_grid, normalized_to_pixels
 
 
@@ -43,6 +54,27 @@ class GeometryAugConfig:
     relative_angle: float | None = 0.25
     relative_scale: tuple[float, float] = (0.96, 1 / 0.96)
     relative_translation: float | None = 0.25
+
+
+#: Largest total rotation (radians) for which the static two-pass bounds
+#: are sound: cos stays >= cos(1.2) ~ 0.362, so the Y pass's scale d =
+#: s*cos stays positive and the 1/cos factors bounded (``:81-84``)
+_TWOPASS_MAX_ANGLE_RAD = 1.2
+SAMPLERS = ("affine", "twopass")
+
+
+def _twopass_total_angle(cfg: GeometryAugConfig) -> float:
+    ang = max(abs(cfg.angle_range[0]), abs(cfg.angle_range[1]))
+    if cfg.relative_angle is not None:
+        ang *= (1.0 + cfg.relative_angle)
+    return ang * math.pi / 180.0
+
+
+def _twopass_fits(cfg: GeometryAugConfig) -> bool:
+    """Whether ``cfg``'s rotations stay within ``_TWOPASS_MAX_ANGLE_RAD``,
+    where the JAX package's ``_twopass_bounds`` (``:95-143``) returns
+    bounds and its sampler runs two-pass."""
+    return _twopass_total_angle(cfg) <= _TWOPASS_MAX_ANGLE_RAD
 
 
 def _uniform(gen, lo, hi, shape, device):
@@ -167,30 +199,49 @@ def sample_grids(draws: dict[str, torch.Tensor], cfg: GeometryAugConfig):
 def geometry_augmentation(img1: torch.Tensor, img2: torch.Tensor,
                           flow: torch.Tensor, mask: torch.Tensor,
                           draws: dict[str, torch.Tensor],
-                          cfg: GeometryAugConfig, image_dtype=None):
+                          cfg: GeometryAugConfig, image_dtype=None,
+                          sampler: str = "affine",
+                          label_dtype: torch.dtype = torch.float16):
     """img1/img2: (B, 3, oh, ow); flow: (B, 2, oh, ow) (dy, dx) source
     pixels; mask: (B, 1, oh, ow) in [0, 1], or broadcastable to it;
     ``draws`` from :func:`draw_geometry`. Returns ``(img1, img2, flow,
     mask)`` at ``cfg.target_shape``: the images in ``image_dtype`` (f32 by
-    default), flow (B, 2, th, tw) and mask (B, 1, th, tw) in f32."""
+    default), flow (B, 2, th, tw) and mask (B, 1, th, tw) in f32.
+    ``sampler``: ``"affine"`` or ``"twopass"``, whose labels are sampled
+    in ``label_dtype`` (f16 or f32)."""
     b, _, oh, ow = img1.shape
     th, tw = cfg.target_shape
     if (oh, ow) != tuple(cfg.orig_shape):
         raise ValueError(f"geometry_augmentation: images are {(oh, ow)}, "
                          f"the config expects {tuple(cfg.orig_shape)}")
+    if sampler not in SAMPLERS:
+        raise ValueError(f"sampler {sampler!r}: expected one of {SAMPLERS}")
+    if label_dtype not in (torch.float16, torch.float32):
+        raise ValueError(f"label_dtype {label_dtype}: f16 or f32")
     (g1x, g1y, g2x, g2y), (m1, t1, m2, t2) = _maps(draws, cfg)
-
-    # joint sampling of img1 / mask / flow*mask, then img2
-    mask_b = mask.float().expand(b, 1, oh, ow)
-    packed = torch.cat([img1.float(), mask_b, flow.float() * mask_b], 1)
-    packed = affine_sample(packed, *normalized_to_pixels(g1x, g1y, oh, ow))
-    img2_a = affine_sample(img2.contiguous(),
-                           *normalized_to_pixels(g2x, g2y, oh, ow))
     out_dt = image_dtype or torch.float32
-    img1_a = packed[:, 0:3].to(out_dt)
-    img2_a = img2_a.to(out_dt)
-    mask_a = packed[:, 3:4]
-    flow_s = packed[:, 4:6] / mask_a.clamp_min(1e-8)          # (dy, dx)
+    mask_b = mask.float().expand(b, 1, oh, ow)
+    if sampler == "twopass" and _twopass_fits(cfg):
+        # the images in bf16 through one call, the labels in label_dtype
+        imgs_a = affine_sample_twopass(
+            torch.cat([img1, img2], 0).to(torch.bfloat16),
+            torch.cat([m1, m2], 0), torch.cat([t1, t2], 0), th, tw)
+        img1_a = imgs_a[:b].to(out_dt)
+        img2_a = imgs_a[b:].to(out_dt)
+        lab = torch.cat([mask_b, flow.float() * mask_b], 1).to(label_dtype)
+        packed = affine_sample_twopass(lab, m1, t1, th, tw).float()
+        mask_a, flow_s = packed[:, 0:1], packed[:, 1:3]
+    else:
+        # joint sampling of img1 / mask / flow*mask, then img2
+        packed = torch.cat([img1.float(), mask_b, flow.float() * mask_b], 1)
+        packed = affine_sample(packed,
+                               *normalized_to_pixels(g1x, g1y, oh, ow))
+        img2_a = affine_sample(img2.contiguous(),
+                               *normalized_to_pixels(g2x, g2y, oh, ow))
+        img1_a = packed[:, 0:3].to(out_dt)
+        img2_a = img2_a.to(out_dt)
+        mask_a, flow_s = packed[:, 3:4], packed[:, 4:6]
+    flow_s = flow_s / mask_a.clamp_min(1e-8)                  # (dy, dx)
 
     # the induced flow-vector transform: F'(p) = T2^-1 (T1 p + F~) - p
     det = m2[:, 0, 0] * m2[:, 1, 1] - m2[:, 0, 1] * m2[:, 1, 0]

@@ -21,6 +21,10 @@ CLI's flags, defaults and log lines, and these differences:
   checkpoints, the profile and what ``--valid``/``--predict`` write;
 * ``--profile START,STOP`` records a ``torch.profiler`` trace into
   ``<root>/profile``;
+* ``--aug_sampler`` and ``--aug_label_dtype`` in place of the JAX
+  package's ``MFN_AUG_SAMPLER`` and ``MFN_AUG_LABEL_DTYPE``: ``twopass``
+  samples the device augmentation as the JAX package does on the TPU
+  (``augment/geometry.py``), so it needs ``--aug device``;
 * every thread ``main`` starts (the loader's producers and mixer, the
   cache's refresh thread or the prefetcher's worker, the checkpoint
   removal thread) has ended when it returns.
@@ -102,6 +106,14 @@ def parse_args(argv=None):
                         "device when --device_cache is active (so echoed "
                         "batches get a fresh crop/affine draw every step) "
                         "and host otherwise")
+    p.add_argument("--aug_sampler", type=str, default="affine",
+                   choices=["affine", "twopass"],
+                   help="the device geometric augmentation's sampler: "
+                        "'affine' (bilinear) or 'twopass' (the JAX "
+                        "package's TPU sampler: its augmented batches)")
+    p.add_argument("--aug_label_dtype", type=str, default="float16",
+                   choices=["float16", "float32"],
+                   help="the dtype twopass samples the labels in")
     args = p.parse_args(argv)
     if args.aug == "auto":
         args.aug = "device" if args.device_cache else "host"
@@ -122,6 +134,11 @@ def build_settings(args, config, dataset_cfg):
     if len(mw) != 5:
         mw = [0.005, 0.01, 0.02, 0.08, 0.32]
     geo = presets.geometry_aug_config(dataset, target_shape, orig_shape)
+    aug = getattr(args, "aug", "host")
+    sampler = getattr(args, "aug_sampler", "affine")
+    if sampler == "twopass" and aug == "host":
+        raise ValueError("--aug_sampler twopass samples inside the train "
+                         "step: it needs --aug device (or --device_cache)")
     return TrainSettings(
         model=model_name,
         model_cfg=model_cfg,
@@ -131,8 +148,10 @@ def build_settings(args, config, dataset_cfg):
         compute_dtype=args.compute_dtype,
         target_shape=tuple(target_shape),
         orig_shape=tuple(orig_shape),
-        geo=None if getattr(args, "aug", "host") == "host" else geo,
+        geo=None if aug == "host" else geo,
         color=presets.color_aug_config(dataset),
+        aug_sampler=sampler,
+        aug_label_dtype=getattr(args, "aug_label_dtype", "float16"),
     ), geo
 
 
@@ -254,7 +273,8 @@ def run_validation(trainer, validation, batch_size, resize):
 # three define the model/data and conflict-abort when training.
 _RESTORABLE_ARGS = (("config", None), ("dataset_cfg", "chairs.yaml"),
                     ("network", "MaskFlownet"), ("batch", None),
-                    ("aug", "host"), ("compute_dtype", "bfloat16"))
+                    ("aug", "host"), ("compute_dtype", "bfloat16"),
+                    ("aug_sampler", "affine"), ("aug_label_dtype", "float16"))
 
 
 def _restore_args_from_log(args, log_file: str, strict: bool = True) -> None:

@@ -7,13 +7,18 @@ same files.
     P6 parser.
   * 16-bit RGB PNG flow maps (KITTI/HD1K ground truth and submission
     format): a minimal PNG16 codec of its own (zlib chunks + scanline
-    filters, unfiltered in numpy), since neither this package nor the
-    machines it runs on may rely on a 16-bit-capable PNG library.
+    filters, unfiltered by the port's C++ runtime, ``native/``, as the
+    JAX package's are), since neither this package nor the machines it
+    runs on may rely on a 16-bit-capable PNG library.
 
   * 8-bit PNG images (``image_load``): the JAX package decodes them
-    through PIL; this decoder is zlib and numpy (the same arrays for
-    every type it accepts, and an error for the rest). ``png8_save``
-    writes gray and RGB ones (the JAX tools write them through PIL).
+    through PIL; this decoder is zlib and the same native unfilter (the
+    same arrays for every type it accepts, and an error for the rest).
+    ``png8_save`` writes gray and RGB ones (the JAX tools write them
+    through PIL).
+
+``_unfilter`` is the unfilter's plain numpy version, which the tests hold
+the native one against; no reader calls it.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from maskflownet_torch import native
 
 _FLO_MAGIC = 202021.25
 
@@ -103,9 +110,10 @@ def _png_chunks(data: bytes):
 
 
 def _unfilter(raw: np.ndarray, filters: np.ndarray, bpp: int) -> np.ndarray:
-    """PNG unfilter of (h, stride) filtered bytes, each row by its own
-    filter type (None, Sub, Up, Average, Paeth), ``bpp`` bytes a pixel
-    (1 for bit depths below 8).
+    """Plain numpy version of ``native.png_unfilter``: the PNG unfilter of
+    (h, stride) filtered bytes, each row by its own filter type (None,
+    Sub, Up, Average, Paeth), ``bpp`` bytes a pixel (1 for bit depths
+    below 8).
 
     A pixel's bytes depend only on its left, upper and upper-left
     neighbours, so the rows are swept as anti-diagonals: pixel (y, x) is
@@ -144,8 +152,9 @@ def _unfilter(raw: np.ndarray, filters: np.ndarray, bpp: int) -> np.ndarray:
 
 
 def _png_read(path: str):
-    """(width, height, bit depth, colour type, unfiltered rows (h, stride)
-    uint8) of a non-interlaced PNG; every IDAT chunk, in order."""
+    """(width, height, bit depth, channels, unfiltered rows (h, stride)
+    uint8) of a non-interlaced PNG; every IDAT chunk, in order, unfiltered
+    by ``native.png_unfilter``."""
     with open(path, "rb") as fp:
         data = fp.read()
     if not data.startswith(_PNG_SIG):
@@ -168,8 +177,8 @@ def _png_read(path: str):
     stride = (w * channels * depth + 7) // 8
     raw = zlib.decompress(b"".join(idat))
     arr = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
-    filters = np.ascontiguousarray(arr[:, 0])
-    body = _unfilter(np.ascontiguousarray(arr[:, 1:]), filters, bpp)
+    body = arr[:, 1:].copy()
+    native.png_unfilter(body, arr[:, 0], bpp)
     return w, h, depth, channels, body
 
 
@@ -178,10 +187,10 @@ def image_load(path: str) -> np.ndarray:
     (PIL, ``np.asarray``) returns for it: gray (bit depth 8, or 1 with
     values 0 and 1) stacked to (H, W, 3); gray + alpha as (H, W, 2); RGB
     as (H, W, 3); RGBA's first three channels. Decoded here with zlib and
-    numpy. Every other PNG raises: 16-bit (the JAX function wraps its
-    values to uint8), palette (it returns the indices), interlaced, and
-    bit depths 2 and 4; so does a file that is not a PNG (``ppm_load``
-    reads FlyingChairs' PPMs)."""
+    the native unfilter. Every other PNG raises: 16-bit (the JAX function
+    wraps its values to uint8), palette (it returns the indices),
+    interlaced, and bit depths 2 and 4; so does a file that is not a PNG
+    (``ppm_load`` reads FlyingChairs' PPMs)."""
     w, h, depth, channels, body = _png_read(path)
     if not (depth == 8 or (depth == 1 and channels == 1)):
         raise ValueError(f"{path}: unsupported PNG bit depth {depth} with "

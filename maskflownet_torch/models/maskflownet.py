@@ -24,9 +24,13 @@ Conventions kept from the JAX package:
     ``kernel`` force one, the explicit counterpart of the JAX package's
     ``MFN_DEFORM``.
 
-The TPU-only reformulations of the JAX model (space-to-depth pyramids,
-per-piece dense convs) are not part of the port: they compute the same
-function for the TPU's lane tiling.
+The JAX model's reformulations for the TPU are not ported, by design:
+space-to-depth pyramids (``MFN_S2D``, ``MFN_S2D_L2``), per-piece dense
+convs (``MFN_DENSE=pieces``) and the ``unfold``/``onehot`` warp and deform
+methods (``MFN_WARP``, ``MFN_DEFORM``). Each computes the default's
+function from the same parameters, laid out for the TPU's lane tiling,
+gather descriptors or matrix unit, so a checkpoint trained under any of
+them runs here on the default path.
 """
 
 from __future__ import annotations

@@ -70,7 +70,13 @@ from maskflownet_torch.parallel.mesh import (Mesh, all_reduce_mean,
 
 @dataclasses.dataclass(frozen=True)
 class TrainSettings:
-    """The JAX package's ``TrainSettings``, field for field."""
+    """The JAX package's ``TrainSettings``, field for field, and two more:
+    ``aug_sampler`` (``"affine"`` or ``"twopass"``) and
+    ``aug_label_dtype`` (``"float16"`` or ``"float32"``, for
+    ``"twopass"``), which ``geometry_augmentation`` takes as ``sampler``
+    and ``label_dtype``: the explicit counterparts of ``MFN_AUG_SAMPLER``
+    and ``MFN_AUG_LABEL_DTYPE`` (the JAX package's off-TPU default is the
+    gather path, ``"affine"`` here)."""
 
     model: str = "MaskFlownet_S"
     model_cfg: ModelConfig = ModelConfig()
@@ -84,6 +90,8 @@ class TrainSettings:
     geo: GeometryAugConfig | None = None     # geometric augmentation
     color: ColorAugConfig | None = None      # colour augmentation
     adam_eps: float = 1e-8
+    aug_sampler: str = "affine"              # geometry's sampler
+    aug_label_dtype: str = "float16"         # twopass's label dtype
 
     def dtype(self) -> torch.dtype:
         return (torch.bfloat16 if self.compute_dtype == "bfloat16"
@@ -228,7 +236,9 @@ class Trainer:
                                   for d in self._local_draws(draws))
         if s.geo is not None:
             img1, img2, flow, mask = geometry_augmentation(
-                img1, img2, flow, mask, geo_draws, s.geo, image_dtype=dtype)
+                img1, img2, flow, mask, geo_draws, s.geo, image_dtype=dtype,
+                sampler=s.aug_sampler,
+                label_dtype=getattr(torch, s.aug_label_dtype, None))
         else:
             img1, img2 = img1.to(dtype), img2.to(dtype)
         mask = mask.expand(b, 1, *flow.shape[2:])

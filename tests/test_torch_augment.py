@@ -20,6 +20,7 @@ its precise channels to 1e-4.
 """
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -34,7 +35,11 @@ from maskflownet_tpu.augment import GeometryAugConfig as JaxGeoCfg
 from maskflownet_tpu.augment import color_augmentation as jax_color
 from maskflownet_tpu.augment import geometry_augmentation as jax_geometry
 from maskflownet_tpu.augment.geometry import _pick_sampler
+from maskflownet_tpu.augment.geometry import \
+    _twopass_bounds as jax_twopass_bounds
 from maskflownet_tpu.config import presets as jax_presets
+from maskflownet_tpu.ops.affine2pass import \
+    affine_sample_twopass as jax_twopass
 from maskflownet_tpu.ops.warp import affine_grid as jax_affine_grid
 from maskflownet_tpu.ops.warp import \
     grid_sample_normalized as jax_grid_sample
@@ -42,9 +47,13 @@ from maskflownet_tpu.training.engine import centralize as jax_centralize
 from maskflownet_torch.augment import (ColorAugConfig, GeometryAugConfig,
                                        color_augmentation, draw_color,
                                        draw_geometry, geometry_augmentation)
-from maskflownet_torch.augment.geometry import sample_grids
+from maskflownet_torch.augment.geometry import (_TWOPASS_MAX_ANGLE_RAD,
+                                                _maps, _twopass_fits,
+                                                _twopass_total_angle,
+                                                sample_grids)
 from maskflownet_torch.config import presets
 from maskflownet_torch.ops.affine import affine_sample, affine_sample_plain
+from maskflownet_torch.ops.affine2pass import affine_sample_twopass
 from maskflownet_torch.ops.warp import (affine_grid, backwarp,
                                         normalized_to_pixels)
 from maskflownet_torch.training import TrainSettings, Trainer
@@ -387,6 +396,139 @@ def test_presets_match_jax(dataset):
 # ---------------------------------------------------------------------------
 # the train step
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# the two-pass sampler (the JAX package's TPU default)
+# ---------------------------------------------------------------------------
+
+def _twopass_case(seed, relative=True):
+    """Smooth f32 inputs at (OH, OW), the JAX config and a key."""
+    rng = np.random.RandomState(seed)
+    jcfg = JaxGeoCfg(target_shape=(TH, TW), orig_shape=(OH, OW))
+    if not relative:
+        jcfg = dataclasses.replace(jcfg, relative_angle=None,
+                                   relative_translation=None)
+    inputs = (_smooth(rng, (B, OH, OW, 3)), _smooth(rng, (B, OH, OW, 3)),
+              _smooth(rng, (B, OH, OW, 2), -10, 10),
+              np.clip(_smooth(rng, (B, OH, OW, 1), -0.5, 2.5), 0, 1))
+    return inputs, jcfg, jax.random.PRNGKey(seed)
+
+
+# the jitted JAX function keeps its half-precision intermediates in f32,
+# the port rounds each op: two ulps of values in [0.5, 1)
+TWOPASS_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7, "float16": 2 ** -10}
+
+
+@pytest.mark.parametrize("dtype", list(TWOPASS_TOL))
+def test_affine_sample_twopass_matches_jax(dtype):
+    """At the pixel maps of a draw of the chairs-like config, the JAX
+    function run inside the bounds its ``_twopass_bounds`` gives the config
+    (its domain; the port's function takes none), on images in [0, 1): f32 within 1e-5 of the largest value, half precision
+    within two ulps (``TWOPASS_TOL``)."""
+    (img1, _, _, _), jcfg, key = _twopass_case(21)
+    cfg = _port_cfg(GeometryAugConfig, jcfg)
+    _, (m1, t1, m2, t2) = _maps(_jax_geometry_draws(key, B, jcfg), cfg)
+    m, t = torch.cat([m1, m2]), torch.cat([t1, t2])
+    img = np.concatenate([img1, img1[:, ::-1]]).astype(np.float32)
+    sx_max, sy_max, shear_max = jax_twopass_bounds(jcfg)
+    kw = dict(sx_max=sx_max, sy_max=sy_max, shear_max=shear_max)
+    got = affine_sample_twopass(_nchw(img).to(getattr(torch, dtype)), m, t,
+                                TH, TW)
+    want = jax.jit(functools.partial(jax_twopass, ho=TH, wo=TW, **kw))(
+        jnp.asarray(img).astype(getattr(jnp, dtype)),
+        jnp.asarray(m.numpy()), jnp.asarray(t.numpy()))
+    assert got.dtype == getattr(torch, dtype)
+    want = _nchw(want).numpy()
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=TWOPASS_TOL[dtype])
+
+
+@pytest.mark.parametrize("label_dtype", ["float32", "float16"])
+def test_geometry_twopass_matches_jax(monkeypatch, label_dtype):
+    """``geometry_augmentation(sampler="twopass")`` against the JAX one,
+    jitted as its train step runs it, under ``MFN_AUG_SAMPLER=twopass``
+    on the same draws, f32 inputs. The images are sampled in bf16 on both
+    sides: two bf16 ulps of values in [0.5, 1) (the jitted function's f32
+    intermediates, and the pixel maps' last bits). Labels in f32: mask
+    1e-5, flow 1e-4 px where the mask is solidly inside; in f16, two f16
+    ulps of the mask (2^-10) and of flow * mask (2^-6 at |flow * mask| <
+    16), divided by the mask."""
+    inputs, jcfg, key = _twopass_case(22)
+    monkeypatch.setenv("MFN_AUG_SAMPLER", "twopass")
+    if label_dtype == "float32":
+        monkeypatch.setenv("MFN_AUG_LABEL_DTYPE", "float32")
+    else:
+        monkeypatch.delenv("MFN_AUG_LABEL_DTYPE", raising=False)
+    # a new jitted function, traced under this environment
+    ref = jax.jit(functools.partial(jax_geometry, cfg=jcfg))(
+        key, *map(jnp.asarray, inputs))
+    got = geometry_augmentation(
+        *(_nchw(x) for x in inputs), _jax_geometry_draws(key, B, jcfg),
+        _port_cfg(GeometryAugConfig, jcfg), sampler="twopass",
+        label_dtype=getattr(torch, label_dtype))
+    assert [t.dtype for t in got] == [torch.float32] * 4
+    for g, r in zip(got[:2], ref[:2]):
+        np.testing.assert_allclose(g.numpy(), _nchw(r).numpy(), rtol=0,
+                                   atol=2 ** -7)
+    mask_tol, flow_tol = (1e-5, 1e-4) if label_dtype == "float32" else (
+        2 ** -10, 2 ** -6 / 0.99)
+    np.testing.assert_allclose(got[3].numpy(), _nchw(ref[3]).numpy(),
+                               rtol=0, atol=mask_tol)
+    m = np.asarray(ref[3])[..., 0] > 0.99
+    assert m.mean() > 0.3
+    err = np.abs(got[2].numpy() - _nchw(ref[2]).numpy()).transpose(
+        0, 2, 3, 1)[m]
+    assert err.max() <= flow_tol, err.max()
+
+
+@pytest.mark.parametrize("dataset", ["chairs", "sintel", "kitti"])
+def test_twopass_fits_the_presets_as_jax(dataset):
+    """The presets run two-pass in both packages."""
+    target = (320, 448) if dataset == "chairs" else (320, 768)
+    orig = presets.ORIG_SHAPE[dataset]
+    assert _twopass_fits(presets.geometry_aug_config(dataset, target, orig))
+    assert jax_twopass_bounds(jax_presets.geometry_aug_config(
+        dataset, target, orig)) is not None
+
+
+def test_twopass_falls_back_past_the_angle_limit():
+    """Past ``_TWOPASS_MAX_ANGLE_RAD`` the config does not fit, as the JAX
+    package's bounds are None, and ``sampler="twopass"`` takes the affine
+    sampler: the same tuple, bitwise."""
+    wild = GeometryAugConfig(angle_range=(-80.0, 80.0),
+                             target_shape=(TH, TW), orig_shape=(OH, OW))
+    assert not _twopass_fits(wild)
+    assert jax_twopass_bounds(JaxGeoCfg(**dataclasses.asdict(wild))) is None
+    assert _twopass_total_angle(wild) > _TWOPASS_MAX_ANGLE_RAD
+    inputs, _, _ = _twopass_case(23)
+    draws = draw_geometry(torch.Generator().manual_seed(2), B, wild, "cpu")
+    tensors = [_nchw(x) for x in inputs]
+    got = geometry_augmentation(*tensors, draws, wild, sampler="twopass")
+    want = geometry_augmentation(*tensors, draws, wild)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="sampler"):
+        geometry_augmentation(*tensors, draws, wild, sampler="xla")
+
+
+def test_trainer_passes_the_sampler_settings(monkeypatch):
+    import maskflownet_torch.training.engine as engine
+    seen = []
+    real = engine.geometry_augmentation
+
+    def spy(*args, **kwargs):
+        seen.append((kwargs["sampler"], kwargs["label_dtype"]))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(engine, "geometry_augmentation", spy)
+    batch = [torch.zeros(1, 3, OH, OW), torch.zeros(1, 3, OH, OW),
+             torch.zeros(1, 2, OH, OW)]
+    for sampler, label in (("affine", "float16"), ("twopass", "float32")):
+        s = dataclasses.replace(_aug_settings("float32"), aug_sampler=sampler,
+                                aug_label_dtype=label)
+        Trainer(s, device="cpu").prepare(*batch)
+    assert seen == [("affine", torch.float16), ("twopass", torch.float32)]
+
 
 def _aug_settings(dtype: str):
     return TrainSettings(

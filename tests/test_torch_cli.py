@@ -195,6 +195,10 @@ def test_parse_args_matches_jax(argv):
     got = vars(cli.parse_args(argv))
     want = vars(jax_cli.parse_args(argv))
     assert got.pop("device") == "cuda" and want.pop("platform") is None
+    # the port's flags for the JAX package's MFN_AUG_SAMPLER and
+    # MFN_AUG_LABEL_DTYPE, at its off-TPU defaults
+    assert (got.pop("aug_sampler"), got.pop("aug_label_dtype")) == (
+        "affine", "float16")
     assert got == want
     assert cli.parse_args(argv + ["--device", "cpu"]).device == "cpu"
 
@@ -214,6 +218,10 @@ def test_build_settings_matches_jax(network, dataset):
         want, want_geo = jax_cli.build_settings(jax_cli.parse_args(argv),
                                                 *cfgs[1])
         g, w = _fields(got), _fields(want)
+        # the port's explicit counterparts of MFN_AUG_SAMPLER and
+        # MFN_AUG_LABEL_DTYPE, at the JAX package's off-TPU defaults
+        assert (g.pop("aug_sampler"), g.pop("aug_label_dtype")) == (
+            "affine", "float16")
         assert set(g) == set(w)
         for k in g:
             if k == "model_cfg":
@@ -231,6 +239,22 @@ def test_build_settings_matches_jax(network, dataset):
         assert _fields(got_geo) == {f: getattr(want_geo, f)
                                     for f in _fields(got_geo)}
         assert (got.geo is None) == (aug == "host")
+
+
+@pytest.mark.parametrize("label_dtype", ["float16", "float32"])
+def test_aug_sampler_flags_reach_the_settings(label_dtype):
+    """``--aug_sampler twopass`` and ``--aug_label_dtype`` become the
+    settings' ``aug_sampler``/``aug_label_dtype``; twopass without device
+    augmentation is refused."""
+    cfgs = (load_config("MaskFlownet_S.yaml"), load_config("chairs.yaml"))
+    argv = ["MaskFlownet_S.yaml", "--aug_sampler", "twopass",
+            "--aug_label_dtype", label_dtype]
+    got, _ = cli.build_settings(cli.parse_args(argv + ["--aug", "device"]),
+                                *cfgs)
+    assert (got.aug_sampler, got.aug_label_dtype) == ("twopass", label_dtype)
+    assert got.geo is not None
+    with pytest.raises(ValueError, match="--aug device"):
+        cli.build_settings(cli.parse_args(argv), *cfgs)
 
 
 # ---------------------------------------------------------------------------
@@ -506,6 +530,32 @@ def test_cli_device_cache_run(cli_env, s_run):
     assert os.listdir(os.path.join(root, "profile")) == [
         f"{run_id}_3-3.json"]
     assert not os.listdir(os.path.join(root, "weights"))
+
+
+def test_cli_twopass_run(cli_env, s_run, monkeypatch):
+    """``--device_cache 2 --aug_sampler twopass``: the device augmentation
+    samples through ``affine_sample_twopass`` (images, then labels) at
+    every step, none through ``affine_sample``."""
+    import maskflownet_torch.augment.geometry as geometry
+    calls = {"twopass": 0, "affine": 0}
+    for name, attr in (("twopass", "affine_sample_twopass"),
+                       ("affine", "affine_sample")):
+        real = getattr(geometry, attr)
+
+        def spy(*args, _real=real, _name=name):
+            calls[_name] += 1
+            return _real(*args)
+        monkeypatch.setattr(geometry, attr, spy)
+    root = os.path.join(cli_env["root"], "twopass")
+    rc, alive = run_main([cli_env["s"], "--dataset_cfg",
+                          cli_env["ds_no_ckpt"], "--root", root,
+                          "--device_cache", "2", "--aug_sampler", "twopass"])
+    assert rc == 0 and not alive
+    (run_id,) = _runs(root)
+    text = _log_of(root, run_id)
+    _check_training_log(text)
+    assert "aug='device'" in text and "aug_sampler='twopass'" in text
+    assert calls == {"twopass": 2 * STEPS, "affine": 0}
 
 
 @pytest.fixture(scope="module")

@@ -61,6 +61,7 @@ def test_importing_the_port_loads_no_banned_module():
             "maskflownet_torch.training, maskflownet_torch.augment, "
             "maskflownet_torch.config.presets, "
             "maskflownet_torch.ops.affine, maskflownet_torch.ops.deform, "
+            "maskflownet_torch.ops.affine2pass, maskflownet_torch.native, "
             "maskflownet_torch.models.maskflownet, "
             "maskflownet_torch.tools.profile_infer, "
             "maskflownet_torch.tools.grad_parity, "
